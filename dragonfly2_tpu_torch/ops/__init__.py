@@ -1,4 +1,4 @@
-"""GNN hot ops: plain PyTorch paths and the hand-written CUDA kernel."""
+"""GNN hot ops: plain PyTorch paths and the hand-written CUDA kernels."""
 
 from dragonfly2_tpu_torch.ops.neighbor_agg import (  # noqa: F401
     masked_mean,
@@ -6,3 +6,4 @@ from dragonfly2_tpu_torch.ops.neighbor_agg import (  # noqa: F401
     neighbor_gather,
     segment_mean,
 )
+from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import NeighborAggregate  # noqa: F401

@@ -6,8 +6,9 @@ so aggregation is a static-shaped gather, a masked mean and matmuls.
 
 ``neighbor_gather`` + ``masked_mean`` are the plain path that ``SAGELayer``
 uses, as in the JAX package; ``neighbor_aggregate`` dispatches the fused
-form to the hand-written CUDA kernel (ops/neighbor_agg_cuda.py) the way the
-JAX package dispatches it to its Pallas kernel.
+form, forward and backward, to the hand-written CUDA kernels
+(ops/neighbor_agg_cuda.py) the way the JAX package dispatches it to its
+Pallas kernel and custom VJP.
 """
 
 from __future__ import annotations
@@ -48,15 +49,16 @@ def neighbor_aggregate(
     impl: "auto" (the CUDA kernel for a CUDA tensor, its plain PyTorch
     version for a CPU tensor), "cuda" (the kernel; raises for a CPU
     tensor), or "torch" (gather + masked_mean, the counterpart of the JAX
-    package's "xla").
+    package's "xla"). "auto" and "cuda" differentiate with respect to h
+    through ``NeighborAggregate``, whose backward is the K2 kernel on the
+    card, as the Pallas kernel's custom VJP is in the JAX package.
     """
     if impl == "torch":
         return masked_mean(neighbor_gather(h, neighbors), mask)
     if impl not in ("auto", "cuda"):
         raise ValueError(f"impl must be 'auto', 'cuda' or 'torch', not {impl!r}")
-    if impl == "cuda" or h.is_cuda:
-        return neighbor_agg_cuda.neighbor_aggregate_cuda(h, neighbors, mask)
-    return neighbor_agg_cuda.neighbor_aggregate_torch(h, neighbors, mask)
+    use_kernel = impl == "cuda" or h.is_cuda
+    return neighbor_agg_cuda.NeighborAggregate.apply(h, neighbors, mask, 1e-6, use_kernel)
 
 
 def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and serving path on a card, against their plain versions.
+"""The port's CUDA kernels, serving and training on a card, against their plain versions.
 
 Every test here is marked ``cuda`` and decides inside its fixture whether a
 card is present, skipping with a reason on a host without one. The file
@@ -14,7 +14,7 @@ import torch
 
 from dragonfly2_tpu_torch.models import GNNScorer, TopoScorer, init_flax_like, params_from_flax
 from dragonfly2_tpu_torch.ops import neighbor_agg, neighbor_agg_cuda
-from dragonfly2_tpu_torch.trainer import synthetic
+from dragonfly2_tpu_torch.trainer import synthetic, train_gnn
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +101,82 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(card):
         neighbor_agg_cuda.neighbor_aggregate_cuda(h, nbr, mask.cpu())
     out = neighbor_agg.neighbor_aggregate(h, nbr, mask, impl="torch")
     assert out.is_cuda and out.shape == h.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", CASES)
+def test_backward_kernel_matches_plain_version(card, name, dtype):
+    h, nbr, mask = (torch.from_numpy(a).to(card) for a in _case(name))
+    g = torch.from_numpy(np.random.default_rng(3).normal(size=tuple(h.shape)).astype(np.float32)).to(card, dtype)
+    before = neighbor_agg_cuda.BWD_LAUNCHES
+    got = neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(g, nbr, mask, h.shape[0])
+    torch.cuda.synchronize()
+    assert neighbor_agg_cuda.BWD_LAUNCHES == before + 1
+    want = neighbor_agg_cuda.neighbor_aggregate_bwd_torch(g, nbr, mask, h.shape[0])
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    named = torch.zeros(h.shape[0], dtype=torch.bool, device=card)
+    live = (mask != 0) & (nbr >= 0) & (nbr < h.shape[0])
+    named[nbr[live].long()] = True
+    assert bool((got[~named] == 0).all())  # a node no live slot names gets exactly 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_neighbor_aggregate_differentiates_through_the_kernels(card, dtype):
+    h, nbr, mask = (torch.from_numpy(a).to(card) for a in _graph(100, 7, 33, seed=5))
+    grads = {}
+    for impl in ("cuda", "plain"):
+        hh = h.to(dtype).requires_grad_()
+        before = (neighbor_agg_cuda.LAUNCHES, neighbor_agg_cuda.BWD_LAUNCHES)
+        if impl == "cuda":
+            out = neighbor_agg.neighbor_aggregate(hh, nbr, mask, impl="cuda")
+            assert out.requires_grad and out.grad_fn is not None
+        else:
+            out = neighbor_agg_cuda.neighbor_aggregate_torch(hh, nbr, mask)
+        (grads[impl],) = torch.autograd.grad((out.float() ** 2).sum(), hh)
+        torch.cuda.synchronize()
+        launched = (neighbor_agg_cuda.LAUNCHES - before[0], neighbor_agg_cuda.BWD_LAUNCHES - before[1])
+        assert launched == ((1, 1) if impl == "cuda" else (0, 0))
+    torch.testing.assert_close(grads["cuda"].float(), grads["plain"].float(), **TOL[dtype])
+
+
+def test_backward_wrapper_refuses_what_it_cannot_take(card):
+    g, nbr, mask = (torch.from_numpy(a).to(card) for a in _graph(16, 4, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(g.t(), nbr[:8], mask[:8], 16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(g.double(), nbr, mask, 16)
+    with pytest.raises(ValueError, match="must lie on"):
+        neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(g, nbr.cpu(), mask, 16)
+    with pytest.raises(ValueError, match="n must lie"):
+        neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(g, nbr, mask, -1)
+
+
+def test_train_steps_on_card_match_cpu(card):
+    cluster = synthetic.make_cluster(num_nodes=256, num_neighbors=8, num_pairs=2048, seed=1)
+    cfg = train_gnn.GNNTrainConfig(hidden=64, embed_dim=32, num_layers=2, batch_size=256, warmup_steps=1)
+    start = init_flax_like(train_gnn.make_model(cfg), seed=0)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        state = train_gnn.init_state(cfg, params=start, device=dev)
+        g = cluster.graph.to(dev)
+        rng = np.random.default_rng(2)
+        losses = []
+        for _ in range(3):
+            state, loss = train_gnn.train_step(state, g, synthetic.sample_batch(cluster.pairs, 256, rng))
+            losses.append(float(loss))
+        out[dev.type] = (losses, {k: v.cpu() for k, v in state.model.state_dict().items()})
+    (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
+    assert np.abs(np.array(lg) - np.array(lc)).max() <= 2e-3
+    assert max(float((pg[k] - pc[k]).abs().max()) for k in pc) <= 1e-2
+    state = train_gnn.init_state(cfg, params=start, device=card)
+    multi = train_gnn.make_multi_step(state, cluster.graph, cluster.pairs, batch_size=256, steps_per_call=4)
+    state, losses = multi(state)
+    assert losses.is_cuda and losses.shape == (4,) and bool(torch.isfinite(losses).all())
+    bad = synthetic.PairBatch(cluster.pairs.child.copy(), *cluster.pairs[1:])
+    bad.child[0] = 256
+    with pytest.raises(ValueError, match="out of range"):  # checked on the host, no device assert
+        train_gnn.train_step(state, cluster.graph.to(card), synthetic.PairBatch(*(a[:8] for a in bad)))
 
 
 def test_gnn_scorer_on_card_matches_cpu(card):

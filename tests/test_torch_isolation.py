@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no JAX, no flax, no optax, nothing of the
-JAX package and no triton, whether imported or named in its sources; it
-stays dflint-clean; and chip_smoke.py refuses to run without a card."""
+JAX package, no triton and no msgpack (the card's machine does not promise
+it; the port carries its own codec), whether imported or named in its
+sources; it stays dflint-clean; and chip_smoke.py refuses to run without a
+card."""
 
 import re
 import subprocess
@@ -21,14 +23,14 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton", "dragonfly2_tpu")
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton", "msgpack", "dragonfly2_tpu")
 )
 print(len(names), ",".join(bad))
 """
 
 # `dragonfly2_tpu\\b` stops before `_torch`: the port may import itself
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|triton|dragonfly2_tpu)\b(?!_)", re.MULTILINE
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|triton|msgpack|dragonfly2_tpu)\b(?!_)", re.MULTILINE
 )
 
 
@@ -54,6 +56,7 @@ def test_port_sources_name_no_jax_import():
     assert offenders == []
     # the pattern itself must catch what it is meant to, and spare the port
     assert _FORBIDDEN.search("import jax.numpy as jnp") and _FORBIDDEN.search("from dragonfly2_tpu.ops import x")
+    assert _FORBIDDEN.search("import msgpack") and _FORBIDDEN.search("from msgpack import packb")
     assert not _FORBIDDEN.search("from dragonfly2_tpu_torch.ops import x")
 
 

@@ -2,22 +2,26 @@
 
 The K1 plain version (``neighbor_agg_cuda.neighbor_aggregate_torch``) is held
 against the Pallas kernel in interpret mode and against the XLA path, on
-tests/test_ops.py's cases and tolerances; the plain ops (gather, masked
-mean, segment mean) against their JAX counterparts. Inputs are numpy arrays
-from a seed, handed to both packages. The CUDA kernel itself runs only on a
-card: tests/test_torch_cuda.py holds it against this plain version there.
+tests/test_ops.py's cases and tolerances; K2's plain version
+(``neighbor_aggregate_bwd_torch``) against the Pallas kernel's custom VJP
+``_agg_bwd``, and the gradient of ``neighbor_aggregate`` against
+``jax.grad`` through the Pallas kernel; the plain ops (gather, masked mean,
+segment mean) against their JAX counterparts. Inputs are numpy arrays from
+a seed, handed to both packages. The CUDA kernels themselves run only on a
+card: tests/test_torch_cuda.py holds them against these plain versions there.
 """
 
 import os
 import stat
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from dragonfly2_tpu.ops import neighbor_agg as jax_agg
-from dragonfly2_tpu.ops.neighbor_agg_pallas import neighbor_aggregate_pallas
+from dragonfly2_tpu.ops.neighbor_agg_pallas import _agg_bwd, neighbor_aggregate_pallas
 from dragonfly2_tpu_torch.ops import _build, neighbor_agg, neighbor_agg_cuda
 
 # tests/test_ops.py's tolerances for the Pallas kernel against XLA
@@ -99,6 +103,53 @@ def test_k1_plain_version_matches_pallas_and_xla(name):
         np.testing.assert_allclose(got[0], h[1], rtol=1e-5)
 
 
+# the gradient cases: test_ops.py's gradient test (96x5x24), and the cases the
+# backward's scatter must get right
+GRAD_CASES = ["96x5x24", "100x7x33", "fully_masked_row", "duplicates", "bfloat16",
+              "fractional_mask", "out_of_range"]
+# tests/test_ops.py:65's tolerance for the f32 gradient; bf16 as its forward
+GRAD_TOL = {np.float32: dict(rtol=1e-3, atol=1e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+
+def _grad_case(name):
+    if name == "96x5x24":
+        return (*_random_graph(96, 5, 24), np.float32)
+    h, nbr, mask, dtype, _ = _case(name)
+    return h, nbr, mask, dtype
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_k1_gradient_matches_pallas_custom_vjp(name):
+    """d/dh sum(neighbor_aggregate(h)**2) through NeighborAggregate against
+    jax.grad through the Pallas kernel (interpret mode) and its _agg_bwd."""
+    h, nbr, mask, dtype = _grad_case(name)
+    th, tn, tm = _to_torch(h, nbr, mask, dtype)
+    th.requires_grad_()
+    out = neighbor_agg.neighbor_aggregate(th, tn, tm)
+    assert out.requires_grad and out.grad_fn is not None
+    (out**2).sum().backward()
+    jh, jn, jm = _to_jax(h, nbr, mask, dtype)
+    want = jax.grad(lambda a: jnp.sum(neighbor_aggregate_pallas(a, jn, jm, interpret=True) ** 2))(jh)
+    assert th.grad.dtype == th.dtype and th.grad.shape == th.shape
+    np.testing.assert_allclose(th.grad.float().numpy(), np.asarray(want, np.float32), **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_k2_plain_version_matches_jax_agg_bwd(name):
+    h, nbr, mask, dtype = _grad_case(name)
+    g = np.random.default_rng(7).normal(size=h.shape).astype(np.float32)
+    tg, tn, tm = _to_torch(g, nbr, mask, dtype)
+    got = neighbor_agg_cuda.neighbor_aggregate_bwd_torch(tg, tn, tm, h.shape[0])
+    assert got.dtype == tg.dtype and got.shape == h.shape
+    jg, jn, jm = _to_jax(g, nbr, mask, dtype)
+    want, none_nbr, none_mask = _agg_bwd(1e-6, True, (h.shape, jn, jm), jg)
+    assert none_nbr is None and none_mask is None  # no gradient for the table or the mask
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL[dtype])
+    named = np.zeros(h.shape[0], bool)
+    named[nbr[(mask != 0) & (nbr >= 0) & (nbr < h.shape[0])]] = True
+    assert np.all(got.float().numpy()[~named] == 0.0)  # a node no live slot names gets exactly 0
+
+
 def test_neighbor_gather_matches_jax():
     h, nbr, _ = _random_graph(40, 5, 12, seed=1)
     got = neighbor_agg.neighbor_gather(torch.from_numpy(h), torch.from_numpy(nbr))
@@ -136,8 +187,13 @@ def test_segment_mean_matches_jax():
 
 def test_auto_dispatch_on_cpu_takes_plain_version():
     h, nbr, mask = (torch.from_numpy(a) for a in _random_graph(32, 4, 8))
+    before = (neighbor_agg_cuda.LAUNCHES, neighbor_agg_cuda.BWD_LAUNCHES)
     out = neighbor_agg.neighbor_aggregate(h, nbr, mask)
     assert torch.equal(out, neighbor_agg_cuda.neighbor_aggregate_torch(h, nbr, mask))
+    hg = h.clone().requires_grad_()
+    neighbor_agg.neighbor_aggregate(hg, nbr, mask).sum().backward()
+    assert torch.equal(hg.grad, neighbor_agg_cuda.neighbor_aggregate_bwd_torch(torch.ones_like(h), nbr, mask, 32))
+    assert (neighbor_agg_cuda.LAUNCHES, neighbor_agg_cuda.BWD_LAUNCHES) == before
     plain = neighbor_agg.neighbor_aggregate(h, nbr, mask, impl="torch")
     assert torch.equal(plain, neighbor_agg.masked_mean(neighbor_agg.neighbor_gather(h, nbr), mask))
     np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=1e-5, atol=1e-6)
@@ -149,14 +205,18 @@ def test_cuda_impl_on_cpu_tensor_raises_without_building(monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_build)
     h, nbr, mask = (torch.from_numpy(a) for a in _random_graph(8, 2, 4))
-    before = neighbor_agg_cuda.LAUNCHES
+    before = (neighbor_agg_cuda.LAUNCHES, neighbor_agg_cuda.BWD_LAUNCHES)
     with pytest.raises(RuntimeError, match="CUDA"):
         neighbor_agg.neighbor_aggregate(h, nbr, mask, impl="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         neighbor_agg_cuda.neighbor_aggregate_cuda(h, nbr, mask)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(h, nbr, mask, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        neighbor_agg.neighbor_aggregate(h.clone().requires_grad_(), nbr, mask, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         neighbor_agg.neighbor_aggregate(h, nbr, mask, impl="pallas")
-    assert neighbor_agg_cuda.LAUNCHES == before
+    assert (neighbor_agg_cuda.LAUNCHES, neighbor_agg_cuda.BWD_LAUNCHES) == before
 
 
 def _fake_nvcc(tmp_path, body):
