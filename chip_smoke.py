@@ -33,8 +33,11 @@ Phases, each of which must hold or the run exits non-zero at once:
              GNNScorer on the card, and 256 concurrent rounds served from it,
              equal to a scorer built from the in-memory trained weights.
 6. kernels   each kernel against its plain PyTorch version on the card, at the
-             main paths' shapes and on edge cases, then timed with CUDA events
-             beside its plain version, its bound and one PyTorch library call.
+             main paths' shapes and on edge cases, and against itself over two
+             launches (bit for bit), then timed with CUDA events beside its
+             plain version, its bound and one PyTorch library call. K2 is
+             timed with its transposed index built beforehand; the index
+             build is timed on its own.
 
 Launch counts are set to 0 just before each main path and read just after.
 Prints a ``{"kernels": [...]}`` line, the card line, and as its last line
@@ -67,6 +70,7 @@ from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import (
     neighbor_aggregate_bwd_torch,
     neighbor_aggregate_cuda,
     neighbor_aggregate_torch,
+    transpose_index,
 )
 from dragonfly2_tpu_torch.trainer import artifacts, train_gnn
 from dragonfly2_tpu_torch.trainer.synthetic import make_cluster, sample_batch
@@ -482,9 +486,12 @@ def edge_cases() -> None:
             compare(f"bwd {name} {str(dt)[6:]}", gh, neighbor_aggregate_bwd_torch(hd, nbr, mask, n))
             if name == "node 0 named by no slot" and not bool((gh[0] == 0).all()):
                 raise AssertionError("a node that no slot names does not get exactly 0")
+            if not (torch.equal(got, neighbor_aggregate_cuda(hd, nbr, mask))
+                    and torch.equal(gh, neighbor_aggregate_bwd_cuda(hd, nbr, mask, n))):
+                raise AssertionError(f"{name} {dt}: a second launch gave other bits")
 
 
-def time_three(fns: dict) -> tuple[dict, dict]:
+def time_all(fns: dict) -> tuple[dict, dict]:
     """Mean ms of each fn with the L2 flushed before each launch, and back to back."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     cold = {name: events_ms(fn, 50, flush) for name, fn in fns.items()}
@@ -501,7 +508,27 @@ def live_slots(nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (mask != 0) & (nbr >= 0) & (nbr < nbr.shape[0])
 
 
-def kernel_row_fwd(h0: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, launches: int) -> dict:
+def kernel_usage(info: dict, kernel: str) -> dict:
+    """Registers and spill bytes of the kernel's bf16 vector instantiation,
+    the one the main paths launch, from the build's -Xptxas -v output, and
+    whether that output is this run's nvcc's or the log of an earlier build
+    of the same source and flags."""
+    found = [u for name, u in _build.ptxas_usage(info["log"]).items()
+             if kernel in name and "13__nv_bfloat16Li8E" in name]
+    if len(found) != 1:
+        raise AssertionError(f"ptxas reported {len(found)} bf16 vector instantiations of {kernel}")
+    return {"registers": found[0]["registers"], "spills": found[0]["spill_stores"] + found[0]["spill_loads"],
+            "registers_from": "this run's nvcc" if info["seconds"] else "an earlier build's log"}
+
+
+def twice_equal(fn) -> bool:
+    """Two launches of fn on the same input give the same bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return bool(torch.equal(a, b))
+
+
+def kernel_row_fwd(h0: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, launches: int, usage: dict) -> dict:
     errs = {}
     for dt in (torch.bfloat16, torch.float32):
         h = h0.to(dt).contiguous()
@@ -509,6 +536,7 @@ def kernel_row_fwd(h0: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, laun
                            neighbor_aggregate_cuda(h, nbr, mask), neighbor_aggregate_torch(h, nbr, mask))
 
     h = h0.contiguous()  # bf16, as the main path gives it
+    deterministic = twice_equal(lambda: neighbor_aggregate_cuda(h, nbr, mask))
     n, k = nbr.shape
     hdim, b = h.shape[1], h.element_size()
     eps = 1e-6
@@ -516,7 +544,7 @@ def kernel_row_fwd(h0: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, laun
     nbr64 = nbr.long()
     lib_out = F.embedding_bag(nbr64, h, per_sample_weights=w, mode="sum")
     lib_err = float((lib_out.float() - neighbor_aggregate_torch(h, nbr, mask).float()).abs().max())
-    cold, warm = time_three({
+    cold, warm = time_all({
         "kernel": lambda: neighbor_aggregate_cuda(h, nbr, mask),
         "plain": lambda: neighbor_aggregate_torch(h, nbr, mask),
         "library": lambda: F.embedding_bag(nbr64, h, per_sample_weights=w, mode="sum"),
@@ -534,10 +562,13 @@ def kernel_row_fwd(h0: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, laun
           f"{warm['kernel']:.4f} ms, plain {cold['plain']:.4f} / {warm['plain']:.4f} ms, "
           f"embedding_bag {cold['library']:.4f} / {warm['library']:.4f} ms "
           f"(its max abs err vs plain {lib_err:.3g}); the kernel's wrapper takes {host_us:.1f} us "
-          f"of host time a call")
+          f"of host time a call; two launches bit-identical: {deterministic}")
     print(f"  fwd bound: {nbytes} bytes ({rows} distinct rows, {n_live} live slots) = {bound_ms * 1e3:.2f} us "
-          f"({bound_by}); the formula N*H*b*2 + N*K*8 gives "
-          f"{(2 * n * hdim * b + 8 * n * k) / HBM_BYTES_PER_S * 1e6:.2f} us")
+          f"({bound_by}), {bound_ms / cold['kernel']:.1%} of it flushed, {bound_ms / warm['kernel']:.1%} warm; "
+          f"the live slots gather {n_live * hdim * b} bytes from L2; {usage['registers']} registers, "
+          f"{usage['spills']} bytes of spills")
+    if not deterministic:
+        raise AssertionError("K1 gave other bits on a second launch")
     return {
         "name": "neighbor_agg_fwd", "route": "cuda",
         "source": "dragonfly2_tpu_torch/csrc/neighbor_agg.cu",
@@ -547,12 +578,12 @@ def kernel_row_fwd(h0: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, laun
         "ms": cold["kernel"], "plain_ms": cold["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": cold["library"],
         "ms_l2_warm": warm["kernel"], "plain_ms_l2_warm": warm["plain"], "library_ms_l2_warm": warm["library"],
-        "host_us_per_launch": host_us,
+        "host_us_per_launch": host_us, "deterministic": deterministic, "index_build_ms": None, **usage,
         "dtype": "bfloat16", "shape": [n, k, hdim], "ok": True,
     }
 
 
-def kernel_row_bwd(nbr: torch.Tensor, mask: torch.Tensor, hdim: int, launches: int) -> dict:
+def kernel_row_bwd(nbr: torch.Tensor, mask: torch.Tensor, hdim: int, launches: int, usage: dict) -> dict:
     n, k = nbr.shape
     g32 = torch.from_numpy(np.random.default_rng(21).normal(size=(n, hdim)).astype(np.float32)).cuda()
     errs = {}
@@ -569,15 +600,19 @@ def kernel_row_bwd(nbr: torch.Tensor, mask: torch.Tensor, hdim: int, launches: i
         compare(f"autograd of neighbor_aggregate [{n}, {k}, {hdim}] {str(dt)[6:]}", *grads)
 
     g = g32.to(torch.bfloat16)  # the training path's dtype
+    index = transpose_index(nbr, mask, n)
+    deterministic = twice_equal(lambda: neighbor_aggregate_bwd_cuda(g, nbr, mask, n, index=index))
     scale = mask / (mask.sum(dim=1, keepdim=True) + 1e-6)
     rows = (g.float()[:, None, :] * scale[..., None]).reshape(-1, hdim)  # the library call's input
     flat = nbr.reshape(-1).long()
-    cold, warm = time_three({
-        "kernel": lambda: neighbor_aggregate_bwd_cuda(g, nbr, mask, n),
+    cold, warm = time_all({
+        "kernel": lambda: neighbor_aggregate_bwd_cuda(g, nbr, mask, n, index=index),
+        "index": lambda: transpose_index(nbr, mask, n),
+        "kernel with index build": lambda: neighbor_aggregate_bwd_cuda(g, nbr, mask, n),
         "plain": lambda: neighbor_aggregate_bwd_torch(g, nbr, mask, n),
         "library": lambda: torch.zeros(n, hdim, dtype=torch.float32, device="cuda").index_add_(0, flat, rows),
     })
-    host_us = host_us_per_call(lambda: neighbor_aggregate_bwd_cuda(g, nbr, mask, n), 50)
+    host_us = host_us_per_call(lambda: neighbor_aggregate_bwd_cuda(g, nbr, mask, n, index=index), 50)
     del rows
 
     # The least work this run's data needs: every g row with a live slot read
@@ -588,14 +623,20 @@ def kernel_row_bwd(nbr: torch.Tensor, mask: torch.Tensor, hdim: int, launches: i
     b = g.element_size()
     nbytes = src_rows * hdim * b + n * k * 4 + n_live * 4 + n * hdim * b
     bound_ms, bound_by = bound(nbytes, 2 * n_live * hdim)
-    print(f"  bwd timing bf16 [{n}, {k}, {hdim}] (L2 flushed / back to back): kernel {cold['kernel']:.4f} / "
-          f"{warm['kernel']:.4f} ms, plain {cold['plain']:.4f} / {warm['plain']:.4f} ms, "
+    with_build = (cold["kernel with index build"], warm["kernel with index build"])
+    print(f"  bwd timing bf16 [{n}, {k}, {hdim}] (L2 flushed / back to back): kernel with its index build, "
+          f"all of K2's work a gradient pays {with_build[0]:.4f} / {with_build[1]:.4f} ms; of it the index build "
+          f"alone {cold['index']:.4f} / {warm['index']:.4f} ms and the kernel alone (index built beforehand) "
+          f"{cold['kernel']:.4f} / {warm['kernel']:.4f} ms; plain {cold['plain']:.4f} / {warm['plain']:.4f} ms, "
           f"index_add_ {cold['library']:.4f} / {warm['library']:.4f} ms; the kernel's wrapper takes "
-          f"{host_us:.1f} us of host time a call")
+          f"{host_us:.1f} us of host time a call; two launches bit-identical: {deterministic}")
     print(f"  bwd bound: {nbytes} bytes ({src_rows} source rows, {n_live} live slots) = {bound_ms * 1e3:.2f} us "
-          f"({bound_by}); the formula N*H*b*2 + N*K*8 gives "
-          f"{(2 * n * hdim * b + 8 * n * k) / HBM_BYTES_PER_S * 1e6:.2f} us; the f32 workspace adds "
-          f"{n * hdim * 4 * 3 / HBM_BYTES_PER_S * 1e6:.2f} us (zeroing, read-modify-write, cast)")
+          f"({bound_by}), {bound_ms / with_build[0]:.1%} / {bound_ms / with_build[1]:.1%} of K2 with its index "
+          f"build, {bound_ms / cold['kernel']:.1%} / {bound_ms / warm['kernel']:.1%} of the gather alone; "
+          f"the live slots gather {n_live * hdim * b} bytes from L2; {usage['registers']} registers, "
+          f"{usage['spills']} bytes of spills")
+    if not deterministic:
+        raise AssertionError("K2 gave other bits on a second launch")
     return {
         "name": "neighbor_agg_bwd", "route": "cuda",
         "source": "dragonfly2_tpu_torch/csrc/neighbor_agg.cu",
@@ -605,7 +646,10 @@ def kernel_row_bwd(nbr: torch.Tensor, mask: torch.Tensor, hdim: int, launches: i
         "ms": cold["kernel"], "plain_ms": cold["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": cold["library"],
         "ms_l2_warm": warm["kernel"], "plain_ms_l2_warm": warm["plain"], "library_ms_l2_warm": warm["library"],
-        "host_us_per_launch": host_us,
+        "host_us_per_launch": host_us, "deterministic": deterministic,
+        "index_build_ms": cold["index"], "index_build_ms_l2_warm": warm["index"],
+        "ms_with_index_build": cold["kernel with index build"],
+        "ms_with_index_build_l2_warm": warm["kernel with index build"], **usage,
         "dtype": "bfloat16", "shape": [n, k, hdim], "ok": True,
     }
 
@@ -638,10 +682,13 @@ def main() -> int:
             built = dict(zip(names, pool.map(_build.build, names)))
         print(f"  {len(built)} kernel source(s) built in {time.perf_counter() - t0:.1f} s")
         for name, info in built.items():
-            print(f"  {name}: " + (f"nvcc {info['seconds']:.1f} s" if info["log"] else "built already"))
-            for line in info["log"].splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"    ptxas: {line.strip()}")
+            print(f"  {name}: " + (f"nvcc {info['seconds']:.1f} s; registers from this run's nvcc"
+                                   if info["seconds"] else "built already; registers from an earlier build's log"))
+            for kernel, u in _build.ptxas_usage(info["log"]).items():
+                print(f"    ptxas: {kernel}: {u['registers']} registers, spill stores {u['spill_stores']} "
+                      f"bytes, spill loads {u['spill_loads']} bytes")
+        usage = {k: kernel_usage(built["neighbor_agg"], f"{k}_kernel")
+                 for k in ("neighbor_agg_fwd", "neighbor_agg_bwd")}
 
     launches = {"neighbor_agg_fwd": 0, "neighbor_agg_bwd": 0}
     with phase("serving"):
@@ -677,8 +724,9 @@ def main() -> int:
 
     with phase("kernels"):
         g = cluster.graph.to("cuda")
-        rows = [kernel_row_fwd(h0, g.neighbors, g.mask, launches["neighbor_agg_fwd"]),
-                kernel_row_bwd(g.neighbors, g.mask, TRAIN.hidden, launches["neighbor_agg_bwd"])]
+        rows = [kernel_row_fwd(h0, g.neighbors, g.mask, launches["neighbor_agg_fwd"], usage["neighbor_agg_fwd"]),
+                kernel_row_bwd(g.neighbors, g.mask, TRAIN.hidden, launches["neighbor_agg_bwd"],
+                               usage["neighbor_agg_bwd"])]
         edge_cases()
 
     print(json.dumps({"kernels": rows}))

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -66,11 +67,14 @@ def build(name: str) -> dict:
 
     Returns the library path, the seconds the build took (0.0 when it was
     already built) and the compiler's output (``-Xptxas -v`` lines
-    included). Raises RuntimeError with the compiler's output if it fails.
+    included). nvcc's output is kept beside the library, so a call that
+    finds the library built returns the log of the build that made it.
+    Raises RuntimeError with the compiler's output if it fails.
     """
     out = library_path(name)
+    log = out.with_suffix(".log")
     if out.exists():
-        return {"path": out, "seconds": 0.0, "log": ""}
+        return {"path": out, "seconds": 0.0, "log": log.read_text() if log.exists() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
@@ -80,8 +84,28 @@ def build(name: str) -> dict:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{proc.stdout}")
+    # the log first, each renamed into place whole: a library found built
+    # always has its whole log beside it
+    tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(proc.stdout)
+    os.replace(tmp_log, log)
     os.replace(tmp, out)
     return {"path": out, "seconds": seconds, "log": proc.stdout}
+
+
+def ptxas_usage(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of each kernel in a build's ``-Xptxas -v``
+    output, by mangled name."""
+    usage: dict[str, dict[str, int]] = {}
+    current = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            current = usage.setdefault(m.group(1), {"registers": 0, "spill_stores": 0, "spill_loads": 0})
+        elif current is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif current is not None and (m := re.search(r"Used (\d+) registers", line)):
+            current["registers"] = int(m.group(1))
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

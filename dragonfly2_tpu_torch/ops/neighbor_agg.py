@@ -51,14 +51,23 @@ def neighbor_aggregate(
     tensor), or "torch" (gather + masked_mean, the counterpart of the JAX
     package's "xla"). "auto" and "cuda" differentiate with respect to h
     through ``NeighborAggregate``, whose backward is the K2 kernel on the
-    card, as the Pallas kernel's custom VJP is in the JAX package.
+    card, as the Pallas kernel's custom VJP is in the JAX package. This is
+    the one place that decides whether a gradient will be taken: only then
+    does the call go through ``NeighborAggregate``, whose forward builds
+    K2's transposed index; otherwise (h needs none, or grad mode is off) it
+    calls the forward alone and builds nothing for the backward.
     """
     if impl == "torch":
         return masked_mean(neighbor_gather(h, neighbors), mask)
     if impl not in ("auto", "cuda"):
         raise ValueError(f"impl must be 'auto', 'cuda' or 'torch', not {impl!r}")
     use_kernel = impl == "cuda" or h.is_cuda
-    return neighbor_agg_cuda.NeighborAggregate.apply(h, neighbors, mask, 1e-6, use_kernel)
+    if torch.is_grad_enabled() and h.requires_grad:
+        return neighbor_agg_cuda.NeighborAggregate.apply(h, neighbors, mask, 1e-6, use_kernel)
+    # no gradient to take: no autograd node, and no transposed index for K2
+    if use_kernel:
+        return neighbor_agg_cuda.neighbor_aggregate_cuda(h, neighbors, mask)
+    return neighbor_agg_cuda.neighbor_aggregate_torch(h, neighbors, mask)
 
 
 def segment_mean(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:

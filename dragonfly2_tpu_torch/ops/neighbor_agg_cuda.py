@@ -7,9 +7,14 @@ kernel ``_agg_kernel``, K2 its custom VJP ``_agg_bwd``. Both live in
 ctypes. The source header says what bounds them on the card and how their
 design differs from the JAX package's.
 
+K2 gathers over a transposed (CSR) copy of the neighbour table,
+``transpose_index``, which the wrapper builds with torch's index ops (on the
+CPU too) and ``NeighborAggregate`` builds once per forward.
+
 ``neighbor_aggregate_torch`` and ``neighbor_aggregate_bwd_torch`` beside
 them are their plain PyTorch versions: the same functions, the same f32
-accumulation and the same out-of-range rule. The CPU takes them; on the
+accumulation and the same out-of-range rule. The CPU takes them (K2's
+through the same index, ``neighbor_aggregate_bwd_index_torch``); on the
 card the tests and chip_smoke.py hold the kernels against them.
 ``NeighborAggregate`` ties the two into one ``torch.autograd.Function``.
 """
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -72,6 +78,60 @@ def neighbor_aggregate_bwd_torch(
     return gh.index_add_(0, nbr[live], rows[live]).to(g.dtype)
 
 
+class TransposedIndex(NamedTuple):
+    """The neighbour table turned around, for K2's gather (CSR by destination).
+
+    Row j's entries are ``[indptr[j], indptr[j+1])``: the live slots
+    (mask != 0, 0 <= nbr < n) that name j, in (destination, flat slot
+    i*K + k) order, each with its source row ``src`` (int32) and its weight
+    mask[i,k] / (Σ_k mask[i,k] + eps) (f32). ``src`` and ``weight`` keep N*K
+    places so that the build never waits on the device: the dead slots sort
+    after every live one, past ``indptr[n]``, where no row's range reaches.
+    """
+
+    indptr: torch.Tensor  # [n + 1] int32
+    src: torch.Tensor  # [N * K] int32
+    weight: torch.Tensor  # [N * K] float32
+
+
+def transpose_index(
+    neighbors: torch.Tensor, mask: torch.Tensor, n: int, *, eps: float = 1e-6
+) -> TransposedIndex:
+    """Build K2's transposed index of (neighbors [N, K], mask [N, K]) over n
+    destination rows, on their device, with torch's index ops: a stable sort
+    of the destination ids (a dead slot's id is n) and a search of the sorted
+    ids for each row's first entry. No host sync."""
+    nbr = neighbors.to(torch.int32)
+    w = mask.float()
+    k = nbr.shape[1]
+    live = (w != 0) & (nbr >= 0) & (nbr < n)
+    key = torch.where(live, nbr, n).reshape(-1)
+    sorted_key, order = torch.sort(key, stable=True)
+    rows = torch.arange(n + 1, dtype=torch.int32, device=key.device)
+    indptr = torch.searchsorted(sorted_key, rows, out_int32=True)
+    scale = (w / (torch.sum(w, dim=1, keepdim=True) + eps)).reshape(-1)
+    return TransposedIndex(indptr, torch.div(order, max(k, 1), rounding_mode="floor").to(torch.int32), scale[order])
+
+
+def neighbor_aggregate_bwd_index_torch(g: torch.Tensor, index: TransposedIndex) -> torch.Tensor:
+    """K2's reduction over a transposed index in plain PyTorch: [N, H] ->
+    [n, H] in g.dtype, f32 sums in entry order; equal to
+    ``neighbor_aggregate_bwd_torch``.
+
+    The CPU backward of ``NeighborAggregate``. It reads the index that the
+    forward saved, the one K2 reads on the card, so a CPU gradient goes
+    through the same index build and entry order as the card's; the
+    slot-based ``neighbor_aggregate_bwd_torch`` stays the plain version that
+    both are held against."""
+    n = index.indptr.shape[0] - 1
+    live = int(index.indptr[-1])
+    counts = (index.indptr[1:] - index.indptr[:-1]).long()
+    dst = torch.repeat_interleave(torch.arange(n, device=g.device), counts)
+    rows = g.float()[index.src[:live].long()] * index.weight[:live, None]
+    gh = torch.zeros((n, g.shape[-1]), dtype=torch.float32, device=g.device)
+    return gh.index_add_(0, dst, rows).to(g.dtype)
+
+
 @functools.cache
 def _kernel():
     """The library's entry points, bound once with their C signatures."""
@@ -80,7 +140,7 @@ def _kernel():
     fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = lib.df_neighbor_agg_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     bwd.restype = ctypes.c_int
     err = lib.df_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -107,8 +167,8 @@ def _check(h: torch.Tensor, neighbors: torch.Tensor, mask: torch.Tensor, name: s
         raise ValueError(f"neighbors and mask must lie on {h.device} with {name}")
     if neighbors.dtype.is_floating_point or neighbors.dtype.is_complex:
         raise TypeError(f"neighbors must be an integer tensor, not {neighbors.dtype}")
-    if max(h.shape[0], h.shape[1], neighbors.shape[1]) > _INT32_MAX:
-        raise ValueError("N, K and H must each fit in int32")
+    if max(h.shape[0], h.shape[1], h.shape[0] * neighbors.shape[1]) > _INT32_MAX:
+        raise ValueError("N, H and N*K must each fit in int32")
 
 
 def _index_inputs(neighbors: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -155,36 +215,42 @@ def neighbor_aggregate_cuda(
     return _launch_fwd(h, *_index_inputs(neighbors, mask), eps)
 
 
-def neighbor_aggregate_bwd_cuda(
-    g: torch.Tensor, neighbors: torch.Tensor, mask: torch.Tensor, n: int, *, eps: float = 1e-6
-) -> torch.Tensor:
-    """Launch K2 on the current stream; g [N, H] -> gh [n, H] in g.dtype.
-
-    The same contract as ``neighbor_aggregate_bwd_torch``. g: CUDA,
-    contiguous, float32 or bfloat16. A bfloat16 g takes an f32 workspace of
-    [n, H] beside gh; a float32 g accumulates in gh itself. Raises on what
-    the kernel does not take and if the launch is refused.
-    """
+def _launch_bwd(g: torch.Tensor, index: TransposedIndex) -> torch.Tensor:
     global BWD_LAUNCHES
-    _check(g, neighbors, mask, name="g")
-    if not 0 <= n <= _INT32_MAX:
-        raise ValueError(f"n must lie in [0, 2**31), not {n}")
-    nbr, msk = _index_inputs(neighbors, mask)
-    hdim = g.shape[1]
+    n, hdim = index.indptr.shape[0] - 1, g.shape[1]
     gh = torch.empty((n, hdim), dtype=g.dtype, device=g.device)
     if n == 0 or hdim == 0:
         return gh
-    ws = gh if g.dtype == torch.float32 else torch.empty((n, hdim), dtype=torch.float32, device=g.device)
     _fwd, bwd, err = _kernel()
     with torch.cuda.device(g.device):
         rc = bwd(
-            g.data_ptr(), nbr.data_ptr(), msk.data_ptr(), gh.data_ptr(), ws.data_ptr(),
-            n, nbr.shape[1], hdim, _DTYPE_CODES[g.dtype], eps,
-            torch.cuda.current_stream(g.device).cuda_stream,
+            g.data_ptr(), index.indptr.data_ptr(), index.src.data_ptr(), index.weight.data_ptr(), gh.data_ptr(),
+            n, hdim, _DTYPE_CODES[g.dtype], torch.cuda.current_stream(g.device).cuda_stream,
         )
     _raise_on(rc, err, "neighbor_agg_bwd")
     BWD_LAUNCHES += 1
     return gh
+
+
+def neighbor_aggregate_bwd_cuda(
+    g: torch.Tensor, neighbors: torch.Tensor, mask: torch.Tensor, n: int, *, eps: float = 1e-6,
+    index: TransposedIndex | None = None,
+) -> torch.Tensor:
+    """Launch K2 on the current stream; g [N, H] -> gh [n, H] in g.dtype.
+
+    The same contract as ``neighbor_aggregate_bwd_torch``. g: CUDA,
+    contiguous, float32 or bfloat16. ``index`` is ``transpose_index(neighbors,
+    mask, n, eps=eps)``, built here when it is not given. Raises on what the
+    kernel does not take and if the launch is refused.
+    """
+    _check(g, neighbors, mask, name="g")
+    if not 0 <= n <= _INT32_MAX:
+        raise ValueError(f"n must lie in [0, 2**31), not {n}")
+    if index is None:
+        index = transpose_index(neighbors, mask, n, eps=eps)
+    elif index.indptr.shape != (n + 1,) or any(t.device != g.device for t in index):
+        raise ValueError(f"index must be transpose_index(neighbors, mask, {n}) on {g.device}")
+    return _launch_bwd(g, index)
 
 
 class NeighborAggregate(torch.autograd.Function):
@@ -193,8 +259,12 @@ class NeighborAggregate(torch.autograd.Function):
 
     ``apply(h, neighbors, mask, eps, use_kernel)``: with ``use_kernel`` the
     forward launches K1 (and raises for a CPU tensor); without, it runs the
-    plain version. The backward launches K2 for a CUDA gradient and runs the
-    plain version for a CPU one.
+    plain version. The forward also builds K2's transposed index and saves
+    it; the backward launches K2 over it for a CUDA gradient and runs the
+    plain reduction over it for a CPU one. Apply it only where a gradient
+    will be taken: ``neighbor_agg.neighbor_aggregate`` decides that, since
+    only the caller sees grad mode (inside ``forward`` it is always off, and
+    ``ctx.needs_input_grad`` follows h.requires_grad even under no_grad).
     """
 
     @staticmethod
@@ -202,18 +272,14 @@ class NeighborAggregate(torch.autograd.Function):
         if use_kernel:
             _check(h, neighbors, mask)
         nbr, msk = _index_inputs(neighbors, mask)
-        ctx.save_for_backward(nbr, msk)
-        ctx.eps, ctx.n = eps, h.shape[0]
+        ctx.save_for_backward(*transpose_index(nbr, msk, h.shape[0], eps=eps))
         if use_kernel:
             return _launch_fwd(h, nbr, msk, eps)
         return neighbor_aggregate_torch(h, nbr, msk, eps=eps)
 
     @staticmethod
     def backward(ctx, g):
-        nbr, msk = ctx.saved_tensors
+        index = TransposedIndex(*ctx.saved_tensors)
         g = g.contiguous()
-        if g.is_cuda:
-            gh = neighbor_aggregate_bwd_cuda(g, nbr, msk, ctx.n, eps=ctx.eps)
-        else:
-            gh = neighbor_aggregate_bwd_torch(g, nbr, msk, ctx.n, eps=ctx.eps)
+        gh = _launch_bwd(g, index) if g.is_cuda else neighbor_aggregate_bwd_index_torch(g, index)
         return gh, None, None, None, None

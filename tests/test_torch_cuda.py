@@ -16,6 +16,11 @@ from dragonfly2_tpu_torch.models import GNNScorer, TopoScorer, init_flax_like, p
 from dragonfly2_tpu_torch.ops import neighbor_agg, neighbor_agg_cuda
 from dragonfly2_tpu_torch.trainer import synthetic, train_gnn
 
+# One intra-op thread: the suite runs six xdist workers on the host's cores
+# beside JAX's thread pools, and torch's default of one thread per core
+# oversubscribes them (on an 8-core host a 1.9 s training test took 116 s).
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 # tests/test_ops.py's tolerances for the Pallas kernel against XLA
@@ -54,13 +59,23 @@ def _case(name):
         nbr[0, 0], mask[0, 0] = 64 + 5, 0.0
         nbr[1, 0], mask[1, 0] = -3, 1.0
         nbr[2, 1], mask[2, 1] = 64, 1.0
+    elif name == "named_k_times":
+        h, nbr, mask = _graph(32, 16, 64, p=1.0)
+        nbr[0] = 5
+    elif name == "node_named_by_no_slot":
+        nbr[nbr == 0] = 1
+    elif name == "padding_to_node_0":  # make_cluster's layout: dead slots index 0 with mask 0
+        h, nbr, mask = _graph(512, 16, 256, p=1.0)
+        for i, deg in enumerate(np.random.default_rng(6).integers(8, 17, 512)):
+            nbr[i, deg:], mask[i, deg:] = 0, 0.0
     else:
         raise KeyError(name)
     return h, nbr, mask
 
 
 CASES = ["100x7x33", "128x16x256", "257x4x64", "1x2x8", "4096x16x256", "k40_more_slots_than_lanes",
-         "h520_more_vectors_than_lanes", "fully_masked_row", "duplicates", "fractional_mask", "out_of_range"]
+         "h520_more_vectors_than_lanes", "fully_masked_row", "duplicates", "fractional_mask", "out_of_range",
+         "named_k_times", "node_named_by_no_slot", "padding_to_node_0"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -122,6 +137,32 @@ def test_backward_kernel_matches_plain_version(card, name, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", CASES)
+def test_kernels_are_bit_identical_over_two_launches(card, name, dtype):
+    h, nbr, mask = (torch.from_numpy(a).to(card) for a in _case(name))
+    h = h.to(dtype)
+    n = h.shape[0]
+    index = neighbor_agg_cuda.transpose_index(nbr, mask, n)
+    runs = [(neighbor_agg_cuda.neighbor_aggregate_cuda(h, nbr, mask),
+             neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(h, nbr, mask, n, index=index)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    # the wrapper's own index build gives the same bits as the one handed in
+    assert torch.equal(neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(h, nbr, mask, n), runs[0][1])
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_transposed_index_on_card_equals_cpu(card, name):
+    _, nbr, mask = (torch.from_numpy(a) for a in _case(name))
+    on_card = neighbor_agg_cuda.transpose_index(nbr.to(card), mask.to(card), nbr.shape[0])
+    on_cpu = neighbor_agg_cuda.transpose_index(nbr, mask, nbr.shape[0])
+    live = int(on_cpu.indptr[-1])
+    assert torch.equal(on_card.indptr.cpu(), on_cpu.indptr)
+    assert torch.equal(on_card.src[:live].cpu(), on_cpu.src[:live])
+    torch.testing.assert_close(on_card.weight[:live].cpu(), on_cpu.weight[:live], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_neighbor_aggregate_differentiates_through_the_kernels(card, dtype):
     h, nbr, mask = (torch.from_numpy(a).to(card) for a in _graph(100, 7, 33, seed=5))
     grads = {}
@@ -150,6 +191,9 @@ def test_backward_wrapper_refuses_what_it_cannot_take(card):
         neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(g, nbr.cpu(), mask, 16)
     with pytest.raises(ValueError, match="n must lie"):
         neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(g, nbr, mask, -1)
+    with pytest.raises(ValueError, match="transpose_index"):  # an index built for another n
+        neighbor_agg_cuda.neighbor_aggregate_bwd_cuda(g, nbr, mask, 16, index=neighbor_agg_cuda.transpose_index(
+            nbr, mask, 12))
 
 
 def test_train_steps_on_card_match_cpu(card):

@@ -22,6 +22,11 @@ from dragonfly2_tpu_torch.models import features, graphsage
 from dragonfly2_tpu_torch.models.weights import init_flax_like, params_from_flax, params_to_flax
 from dragonfly2_tpu_torch.trainer import synthetic
 
+# One intra-op thread: the suite runs six xdist workers on the host's cores
+# beside JAX's thread pools, and torch's default of one thread per core
+# oversubscribes them (on an 8-core host a 1.9 s training test took 116 s).
+torch.set_num_threads(1)
+
 # bf16 compute in both frameworks rounds at different places; these bound
 # the drift the carried weights may show (embeddings are unit vectors,
 # scores lie in (0, 1)).

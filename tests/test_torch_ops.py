@@ -24,6 +24,11 @@ from dragonfly2_tpu.ops import neighbor_agg as jax_agg
 from dragonfly2_tpu.ops.neighbor_agg_pallas import _agg_bwd, neighbor_aggregate_pallas
 from dragonfly2_tpu_torch.ops import _build, neighbor_agg, neighbor_agg_cuda
 
+# One intra-op thread: the suite runs six xdist workers on the host's cores
+# beside JAX's thread pools, and torch's default of one thread per core
+# oversubscribes them (on an 8-core host a 1.9 s training test took 116 s).
+torch.set_num_threads(1)
+
 # tests/test_ops.py's tolerances for the Pallas kernel against XLA
 TOL = {np.float32: dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 
@@ -150,6 +155,107 @@ def test_k2_plain_version_matches_jax_agg_bwd(name):
     assert np.all(got.float().numpy()[~named] == 0.0)  # a node no live slot names gets exactly 0
 
 
+# the transposed index's cases: each names what K2's gather must get right
+INDEX_CASES = ["100x7x33", "padding_to_node_0", "out_of_range", "fractional_mask", "named_k_times",
+               "node_named_by_no_slot", "fully_masked_row"]
+
+
+def _index_case(name):
+    """(neighbors, mask) for one named case of the transposed index."""
+    if name == "100x7x33":
+        _, nbr, mask = _random_graph(100, 7, 33)
+    elif name == "padding_to_node_0":
+        # make_cluster's layout: a row's first deg slots live, the rest index 0 with mask 0
+        rng = np.random.default_rng(8)
+        nbr = rng.integers(1, 80, (80, 12)).astype(np.int32)
+        mask = np.ones((80, 12), np.float32)
+        for i, deg in enumerate(rng.integers(4, 13, 80)):
+            nbr[i, deg:], mask[i, deg:] = 0, 0.0
+    elif name == "out_of_range":
+        nbr, mask = _case("out_of_range")[1:3]
+    elif name == "fractional_mask":
+        nbr, mask = _case("fractional_mask")[1:3]
+    elif name == "named_k_times":
+        _, nbr, mask = _random_graph(32, 16, 8, seed=9)
+        nbr[0], mask[0] = 5, 1.0
+    elif name == "node_named_by_no_slot":
+        _, nbr, mask = _random_graph(48, 6, 8, seed=10)
+        nbr[nbr == 7] = 8
+    elif name == "fully_masked_row":
+        nbr, mask = _case("fully_masked_row")[1:3]
+    else:
+        raise KeyError(name)
+    return nbr, mask
+
+
+@pytest.mark.parametrize("name", INDEX_CASES)
+def test_transposed_index_holds_exactly_the_live_slots_in_order(name):
+    nbr, mask = _index_case(name)
+    n, k = nbr.shape
+    index = neighbor_agg_cuda.transpose_index(torch.from_numpy(nbr), torch.from_numpy(mask), n)
+    indptr, src, weight = (t.numpy() for t in index)
+    assert indptr.dtype == src.dtype == np.int32 and weight.dtype == np.float32
+    assert indptr.shape == (n + 1,) and indptr[0] == 0 and np.all(np.diff(indptr) >= 0)
+    # what it must hold: every live slot, by (destination, flat slot i*K + k)
+    scale = mask / (mask.sum(axis=1, keepdims=True) + np.float32(1e-6))
+    live = [(int(nbr[i, s]), i * k + s) for i in range(n) for s in range(k)
+            if mask[i, s] != 0 and 0 <= nbr[i, s] < n]
+    live.sort()
+    assert indptr[n] == len(live)
+    dst = np.repeat(np.arange(n), np.diff(indptr))
+    np.testing.assert_array_equal(dst, [j for j, _ in live])
+    np.testing.assert_array_equal(src[: len(live)], [slot // k for _, slot in live])
+    want_w = np.array([scale[slot // k, slot % k] for _, slot in live], np.float32)
+    np.testing.assert_allclose(weight[: len(live)], want_w, rtol=1e-6, atol=0)
+    if name == "padding_to_node_0":  # the padding's 0s are no entries of node 0
+        assert indptr[1] == 0
+    if name == "named_k_times":
+        assert np.count_nonzero(src[indptr[5]:indptr[6]] == 0) == k
+    if name == "node_named_by_no_slot":
+        assert indptr[7] == indptr[8]
+    if name == "fully_masked_row":
+        assert 3 not in src[: indptr[n]]
+
+
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_plain_reduction_over_the_index_matches_plain_k2_and_jax(name):
+    """K2's reduction over the transposed index against the plain K2 (1e-6,
+    f32) and against the Pallas kernel's VJP through jax.vjp (interpret mode)."""
+    h, nbr, mask, dtype = _grad_case(name)
+    g = np.random.default_rng(11).normal(size=h.shape).astype(np.float32)
+    tg, tn, tm = _to_torch(g, nbr, mask, dtype)
+    n = h.shape[0]
+    got = neighbor_agg_cuda.neighbor_aggregate_bwd_index_torch(tg, neighbor_agg_cuda.transpose_index(tn, tm, n))
+    assert got.dtype == tg.dtype and got.shape == (n, h.shape[1])
+    if dtype == np.float32:
+        plain = neighbor_agg_cuda.neighbor_aggregate_bwd_torch(tg, tn, tm, n)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-6, atol=1e-6)
+    jh, jn, jm = _to_jax(h, nbr, mask, dtype)
+    jg = _to_jax(g, nbr, mask, dtype)[0]
+    _, vjp = jax.vjp(lambda a: neighbor_aggregate_pallas(a, jn, jm, interpret=True), jh)
+    (want,) = vjp(jg)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL[dtype])
+
+
+def test_neighbor_aggregate_builds_the_index_only_when_a_gradient_is_taken(monkeypatch):
+    built = []
+    real = neighbor_agg_cuda.transpose_index
+
+    def counting(*args, **kwargs):
+        built.append(args[2])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(neighbor_agg_cuda, "transpose_index", counting)
+    h, nbr, mask = (torch.from_numpy(a) for a in _random_graph(32, 4, 8))
+    neighbor_agg.neighbor_aggregate(h, nbr, mask)
+    hg = h.clone().requires_grad_()
+    with torch.no_grad():
+        neighbor_agg.neighbor_aggregate(hg, nbr, mask)
+    assert built == []
+    neighbor_agg.neighbor_aggregate(hg, nbr, mask).sum().backward()
+    assert built == [32] and hg.grad is not None
+
+
 def test_neighbor_gather_matches_jax():
     h, nbr, _ = _random_graph(40, 5, 12, seed=1)
     got = neighbor_agg.neighbor_gather(torch.from_numpy(h), torch.from_numpy(nbr))
@@ -246,6 +352,27 @@ def test_build_finds_nvcc_keys_on_source_and_caches(tmp_path, monkeypatch):
     (csrc / "k.cu").write_text("// v2\n")
     assert _build.library_path("k") != old
     assert not os.path.exists(_build.library_path("k"))
+
+
+def test_build_keeps_its_log_and_usage_parses_ptxas(tmp_path, monkeypatch):
+    # a stand-in nvcc that prints a -Xptxas -v report, then writes its -o target
+    _fake_nvcc(tmp_path, "echo \"ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'\"\n"
+               'echo "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads"\n'
+               'echo "ptxas info    : Used 32 registers, used 0 barriers"\n'
+               'while [ "$1" != "-o" ]; do shift; done; : > "$2"\n')
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// v1\n")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build.build("k")
+    assert first["seconds"] > 0.0
+    again = _build.build("k")  # built already: the log is kept beside it
+    assert again["seconds"] == 0.0 and again["log"] == first["log"]
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [first["path"].name, first["path"].with_suffix(".log").name])  # no temporary file left
+    assert _build.ptxas_usage(again["log"]) == {"_Z1kv": {"registers": 32, "spill_stores": 8, "spill_loads": 12}}
 
 
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):

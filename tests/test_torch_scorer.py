@@ -20,6 +20,11 @@ from dragonfly2_tpu_torch.models.weights import init_flax_like, params_from_flax
 from dragonfly2_tpu_torch.native import MicroBatchScorer
 from dragonfly2_tpu_torch.trainer import synthetic
 
+# One intra-op thread: the suite runs six xdist workers on the host's cores
+# beside JAX's thread pools, and torch's default of one thread per core
+# oversubscribes them (on an 8-core host a 1.9 s training test took 116 s).
+torch.set_num_threads(1)
+
 SCORE_MAX_ABS = 5e-3  # bf16 compute, rounded at different places in the two frameworks
 NODES, NEIGHBORS, HIDDEN, EMBED, LAYERS = 128, 8, 32, 16, 2
 

@@ -24,6 +24,11 @@ from dragonfly2_tpu_torch.models import GNNScorer, LinearScorer
 from dragonfly2_tpu_torch.models.weights import params_from_flax, params_to_flax
 from dragonfly2_tpu_torch.trainer import synthetic, train_gnn
 
+# One intra-op thread: the suite runs six xdist workers on the host's cores
+# beside JAX's thread pools, and torch's default of one thread per core
+# oversubscribes them (on an 8-core host a 1.9 s training test took 116 s).
+torch.set_num_threads(1)
+
 # bf16 compute in both frameworks rounds at different places: bounds on what
 # carried weights may show. Parameters drift about one learning rate in six
 # steps, where Adam magnifies bf16 noise in gradients near 0.
