@@ -32,7 +32,20 @@ Phases, each of which must hold or the run exits non-zero at once:
              digested and verified, loaded back (load_gnn, load_graph) into a
              GNNScorer on the card, and 256 concurrent rounds served from it,
              equal to a scorer built from the in-memory trained weights.
-6. kernels   each kernel against its plain PyTorch version on the card, at the
+6. ingest    the trainer service's main path at its own default widths:
+             synth_telemetry_records(500,000 downloads, 500,000 probes, 16384
+             hosts, seed 7), the trainer's default pool (pool_rows), folded
+             through TrainerService.train_open / train_chunk in ColumnarStore's
+             65,536-row chunks (all downloads, then all probes) / train_close /
+             wait_idle, with the default device (the card) and no manager. The
+             MLP (256, 256, 128) trains 500 steps at batch 4096, the GNN (hidden
+             256, embed 128, 3 layers, batch 4096) 100 steps in calls of 10:
+             cut in GNN steps only (the default is 300). Both models must come
+             out; both artifacts verify; the GNN artifact's graph equals the
+             one-shot build_dataset's bit for bit and both sketches its counts;
+             the loaded MLP on the card is held against the CPU over the eval
+             split, and 3 MLP steps on the card against 3 on the CPU.
+7. kernels   each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
@@ -53,6 +66,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import tempfile
@@ -72,8 +86,10 @@ from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import (
     neighbor_aggregate_torch,
     transpose_index,
 )
-from dragonfly2_tpu_torch.trainer import artifacts, train_gnn
-from dragonfly2_tpu_torch.trainer.synthetic import make_cluster, sample_batch
+from dragonfly2_tpu_torch import resolve_device
+from dragonfly2_tpu_torch.trainer import artifacts, dataset, train_gnn, train_mlp
+from dragonfly2_tpu_torch.trainer.service import TrainerConfig, TrainerService, pack_records
+from dragonfly2_tpu_torch.trainer.synthetic import make_cluster, sample_batch, synth_telemetry_records
 
 NUM_HOSTS, NUM_NEIGHBORS, GRAPH_SEED = 16384, 16, 7
 MODEL = dict(hidden=256, embed_dim=128, num_layers=3, head_hidden=256)
@@ -87,6 +103,11 @@ TRAIN_CALLS, REMAT_CALLS, STEPS_PER_CALL = 2, 2, 10
 CPU_TRAIN = train_gnn.GNNTrainConfig(hidden=256, embed_dim=128, num_layers=3, batch_size=4096, warmup_steps=1)
 CPU_TRAIN_STEPS, TRAIN_LOSS_MAX_ABS, TRAIN_PARAM_MAX_ABS = 3, 2e-3, 1e-2
 RELOAD_SCORE_MAX_ABS = 1e-6
+# the trainer's default pool (TrainerConfig.pool_rows) of each record kind,
+# over the serving cluster's host count, in ColumnarStore's rotate_rows chunks
+INGEST_ROWS, INGEST_HOSTS, INGEST_SEED, INGEST_CHUNK = 500_000, 16384, 7, 65536
+INGEST_GNN_STEPS = 100  # the one cut: TrainerConfig's default is 300
+MLP_CPU_STEPS, MLP_EVAL_MAX_ABS = 3, 5e-3
 # tests/test_ops.py's own tolerances for the Pallas kernel against XLA
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 EMBED_MIN_COSINE, SCORE_MAX_ABS = 0.999, 5e-3
@@ -431,6 +452,123 @@ def artifact_handoff(cluster, state: train_gnn.TrainState) -> dict:
             "round_p50_ms": float(np.percentile(lat_ms, 50))}
 
 
+async def drive_service(cfg: TrainerConfig, downloads: np.ndarray, probes: np.ndarray) -> tuple:
+    """One scheduler upload through the service's own coroutines: open, every
+    download chunk, every probe chunk, close, then wait for the training run.
+    Returns the run's result (``{}`` if none), the service's status, and the
+    host seconds of the chunk calls (unpacking and folding) and of
+    close-to-idle (the whole training run)."""
+    svc = TrainerService(cfg, manager=None)
+    token = (await svc.train_open({"hostname": "chip-smoke", "scheduler_id": 0}))["token"]
+    packed = [(kind, pack_records(arr[s : s + INGEST_CHUNK]))
+              for kind, arr in (("downloads", downloads), ("probes", probes))
+              for s in range(0, len(arr), INGEST_CHUNK)]
+    t0 = time.perf_counter()
+    for kind, data in packed:
+        await svc.train_chunk({"token": token, "kind": kind, "data": data})  # dflint: disable=DF025 the upload protocol is one train_chunk per chunk
+    fold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    await svc.train_close({"token": token})
+    await svc.wait_idle()
+    run_s = time.perf_counter() - t0
+    return svc.last_result or {}, await svc.status(), fold_s, run_s
+
+
+def mlp_cpu_check(cfg: train_mlp.MLPTrainConfig, pairs, dev: torch.device) -> dict:
+    """MLP_CPU_STEPS steps on ``dev`` and on the CPU from the same start and batches."""
+    start = init_flax_like(train_mlp.make_model(cfg), seed=WEIGHT_SEED)
+    rng = np.random.default_rng(15)
+    batches = [rng.integers(0, len(pairs.child), cfg.batch_size) for _ in range(MLP_CPU_STEPS)]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = train_mlp.make_model(cfg)
+        model.load_state_dict(params_from_flax(start))
+        model.to(d)
+        opt = train_mlp.make_optimizer(cfg, model.parameters())
+        losses = [float(train_mlp.train_step(model, opt, i, torch.from_numpy(pairs.feats[idx]).to(d),
+                                             torch.from_numpy(pairs.label[idx]).to(d))[0])
+                  for i, idx in enumerate(batches)]
+        out[d.type] = (losses, {k: v.cpu() for k, v in model.state_dict().items()})
+    (lg, pg), (lc, pc) = out[dev.type], out["cpu"]
+    loss_err = float(np.abs(np.array(lg) - np.array(lc)).max())
+    param_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    print(f"  MLP card vs CPU, {MLP_CPU_STEPS} steps at batch {cfg.batch_size}: losses {[round(v, 6) for v in lg]} "
+          f"vs {[round(v, 6) for v in lc]}, max abs {loss_err:.3g}; parameters max abs {param_err:.3g}")
+    if loss_err > TRAIN_LOSS_MAX_ABS or param_err > TRAIN_PARAM_MAX_ABS or not np.all(np.isfinite(lg)):
+        raise AssertionError(f"card and CPU MLP training disagree: loss {loss_err} > {TRAIN_LOSS_MAX_ABS} "
+                             f"or parameters {param_err} > {TRAIN_PARAM_MAX_ABS}")
+    return {"loss_max_abs": loss_err, "param_max_abs": param_err}
+
+
+def ingest() -> dict:
+    """The trainer service's main path, records to both artifacts, on the
+    default device; then the artifacts checked against a one-shot build."""
+    t_phase = time.perf_counter()
+    dev = resolve_device()
+    t0 = time.perf_counter()
+    downloads, probes = synth_telemetry_records(INGEST_ROWS, INGEST_ROWS, INGEST_HOSTS, seed=INGEST_SEED)
+    records_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainerConfig(model_dir=tmp, gnn_steps=INGEST_GNN_STEPS, gnn_steps_per_call=10)
+        torch.cuda.reset_peak_memory_stats()
+        res, status, fold_s, run_s = asyncio.run(drive_service(cfg, downloads, probes))
+        peak = torch.cuda.max_memory_allocated()
+        # _train turns any fault inside the run into {"error": ...}: say so loudly
+        if "mlp" not in res or "gnn" not in res:
+            raise AssertionError(f"the service's run did not give both models: {res}")
+        mlp_dir, gnn_dir = res["mlp"]["artifact"], res["gnn"]["artifact"]
+        if not (pathlib.Path(gnn_dir) / "scorer.dfsc").exists():
+            raise AssertionError("save_native wrote no scorer.dfsc (its failure is only logged)")
+        for m in ("mlp", "gnn"):
+            artifacts.verify_artifact(res[m]["artifact"], res[m]["digest"])
+        t0 = time.perf_counter()
+        want = dataset.build_dataset(downloads, probes)
+        build_s = time.perf_counter() - t0
+        graph, hosts = artifacts.load_graph(gnn_dir)
+        same = [name for name, a, b in zip(graph._fields, graph, want.graph)
+                if a.dtype != b.dtype or not np.array_equal(a, b)]
+        if same or hosts != {k.decode(): v for k, v in want.host_index.items()}:
+            raise AssertionError(f"the artifact's graph differs from build_dataset's in {same or 'hosts.json'}")
+        for d in (mlp_dir, gnn_dir):
+            if not np.array_equal(artifacts.load_sketch(d).counts, want.feature_sketch.counts):
+                raise AssertionError(f"{d}: sketch counts differ from build_dataset's")
+        model, sd = artifacts.load_mlp(mlp_dir)
+    _, ev = dataset.split_pairs(want.pairs)
+    preds = {}
+    for d in (dev, torch.device("cpu")):
+        m = copy.deepcopy(model).to(d)
+        with torch.inference_mode():
+            preds[d.type] = m(torch.from_numpy(ev.feats).to(d)).cpu().numpy()
+    eval_err = float(np.abs(preds[dev.type] - preds["cpu"]).max())
+    print(f"  loaded MLP over the eval split ({len(ev.child)} pairs): card vs CPU max abs {eval_err:.3g}")
+    if eval_err > MLP_EVAL_MAX_ABS or not np.all(np.isfinite(preds[dev.type])):
+        raise AssertionError(f"the loaded MLP disagrees on the card: {eval_err} > {MLP_EVAL_MAX_ABS}")
+    tr, _ = dataset.split_pairs(want.pairs)
+    card_vs_cpu = mlp_cpu_check(cfg.mlp, tr, dev)
+    mlp_ev, gnn_ev = res["mlp"]["evaluation"], res["gnn"]["evaluation"]
+    numbers = {
+        "downloads": INGEST_ROWS, "probes": INGEST_ROWS, "hosts": INGEST_HOSTS, "chunk_rows": INGEST_CHUNK,
+        "records_s": records_s, "fold_s": fold_s, "finalize_s": res["build_seconds"],
+        "one_shot_build_dataset_s": build_s, "close_to_idle_s": run_s,
+        "pairs": res["num_pairs"], "nodes": res["num_nodes"], "edges": int(want.graph.mask.sum()),
+        "pool_edges": status["pool_edges"],
+        "mlp_train_s": mlp_ev["train_seconds"], "mlp_steps_per_s": res["mlp"]["telemetry"]["steps_per_sec"],
+        "mlp_eval_mse": mlp_ev.get("eval_mse"),
+        "gnn_train_s": gnn_ev["train_seconds"], "gnn_steps_per_s_with_setup": gnn_ev["steps_per_sec"],
+        "gnn_steps_per_s": res["gnn"]["telemetry"]["steps_per_sec"],
+        "max_memory_allocated_bytes": peak, "loaded_mlp_eval_max_abs": eval_err, "mlp_card_vs_cpu": card_vs_cpu,
+        "telemetry": {m: {k: v for k, v in res[m]["telemetry"].items() if k != "curve"} for m in ("mlp", "gnn")},
+        "wall_s": time.perf_counter() - t_phase,
+    }
+    print(f"  {INGEST_ROWS} downloads + {INGEST_ROWS} probes over {INGEST_HOSTS} hosts: folded in {fold_s:.2f} s, "
+          f"finalize {res['build_seconds']:.2f} s (one-shot build_dataset {build_s:.2f} s); {res['num_pairs']} pairs, "
+          f"{res['num_nodes']} nodes, {numbers['edges']} edges kept of {numbers['pool_edges']}; MLP "
+          f"{mlp_ev['train_seconds']} s, {numbers['mlp_steps_per_s']} steps/s; GNN {gnn_ev['train_seconds']} s, "
+          f"{numbers['gnn_steps_per_s']} steps/s; close to idle {run_s:.2f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; phase {numbers['wall_s']:.1f} s")
+    return numbers
+
+
 def edge_case_inputs() -> dict:
     """Named (h, neighbors, mask) CPU inputs that each kernel must get right."""
     rng = np.random.default_rng(0)
@@ -721,6 +859,14 @@ def main() -> int:
     with phase("artifact"):
         print(json.dumps({"artifact": artifact_handoff(cluster, state), "card": card}))
         del state
+
+    with phase("ingest"):
+        zero_counts()
+        numbers = ingest()
+        # no kernel is on this path: SAGELayer and the MLP launch neither K1 nor K2
+        numbers["kernel_launches"] = seen = counts()
+        launches = {k: launches[k] + v for k, v in seen.items()}
+        print(json.dumps({"ingest": numbers, "card": card}))
 
     with phase("kernels"):
         g = cluster.graph.to("cuda")

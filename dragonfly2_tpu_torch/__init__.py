@@ -6,12 +6,17 @@ and names (``models/graphsage.py`` here is ``models/graphsage.py`` there) so
 each module has an obvious counterpart, and imports nothing of it.
 
 Layout:
-  models/   feature schema, GraphSAGE TopoScorer, flax weight carry-over,
-            the cached-embedding GNNScorer
-  ops/      neighbour gather / masked mean, and the hand-written CUDA
-            neighbour-aggregation kernel (csrc/neighbor_agg.cu)
-  trainer/  the synthetic cluster generator
-  native/   the micro-batching request front
+  models/         feature schema, GraphSAGE TopoScorer, BandwidthMLP, flax
+                  weight carry-over, the cached-embedding GNNScorer
+  ops/            neighbour gather / masked mean, and the hand-written CUDA
+                  neighbour-aggregation kernel (csrc/neighbor_agg.cu)
+  trainer/        synthetic cluster and telemetry generators, the
+                  telemetry-to-dataset ingest, MLP and GNN training, the
+                  trainer service, artifacts
+  telemetry/      the download and probe record schemas
+  observability/  metric registry, span tracer, feature sketch
+  utils/          the injectable clock
+  native/         the micro-batching request front, the scorer.dfsc writer
 
 Entry points run on the card unless the caller asks for the CPU.
 """

@@ -1,6 +1,7 @@
-"""Training-side code of the port: the synthetic cluster generator, GNN
-training on one device, and the artifacts it publishes. The dataset twin
-and the MLP trainer follow in later slices."""
+"""Training-side code of the port: the synthetic cluster and telemetry
+generators, the telemetry-to-dataset ingest, MLP and GNN training on one
+device, the trainer service that joins them, and the artifacts it
+publishes."""
 
 from dragonfly2_tpu_torch.trainer.artifacts import (  # noqa: F401
     ARTIFACT_FORMAT,
@@ -10,10 +11,26 @@ from dragonfly2_tpu_torch.trainer.artifacts import (  # noqa: F401
     load_config,
     load_gnn,
     load_graph,
+    load_mlp,
+    load_sketch,
     save_artifact,
     save_graph,
     save_native,
+    save_sketch,
     verify_artifact,
+)
+from dragonfly2_tpu_torch.trainer.dataset import (  # noqa: F401
+    Dataset,
+    DatasetAccumulator,
+    build_dataset,
+    split_pairs,
+)
+from dragonfly2_tpu_torch.trainer.metrics import TrainRunTelemetry  # noqa: F401
+from dragonfly2_tpu_torch.trainer.service import (  # noqa: F401
+    TrainerConfig,
+    TrainerService,
+    pack_records,
+    unpack_records,
 )
 from dragonfly2_tpu_torch.trainer.train_gnn import (  # noqa: F401
     GNNTrainConfig,
@@ -25,3 +42,4 @@ from dragonfly2_tpu_torch.trainer.train_gnn import (  # noqa: F401
     train_async,
     train_step,
 )
+from dragonfly2_tpu_torch.trainer.train_mlp import MLPTrainConfig  # noqa: F401

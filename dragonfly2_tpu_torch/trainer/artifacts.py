@@ -1,17 +1,18 @@
-"""Model artifact (de)serialization for the registry, GNN half, in PyTorch.
+"""Model artifact (de)serialization for the registry, in PyTorch.
 
 The port of dragonfly2_tpu/trainer/artifacts.py. One artifact = one
 directory: ``params.msgpack`` (the flax parameter tree, written and read by
 the port's own msgpack codec, byte for byte what ``flax.serialization``
 writes), ``config.json`` (model hyperparameters + type + version + format),
-and beside them the GNN's ``graph.npz``/``hosts.json`` and ``scorer.dfsc``.
-Either package reads what the other writes. ``artifact_digest`` covers every
-file, so tampering with any of them fails ``verify_artifact`` before a
-scorer attaches it.
+``sketch.json`` (the training-reference feature sketch a serving scheduler
+compares live scoring features against), and beside them the GNN's
+``graph.npz``/``hosts.json`` and ``scorer.dfsc``. Either package reads what
+the other writes. ``artifact_digest`` covers every file, so tampering with
+any of them fails ``verify_artifact`` before a scorer attaches it.
 
-Still to come with later slices: the MLP loader, ``load_native`` (the C++
-scorer's ctypes binding), the training-reference feature sketch, and the
-fault-injection hook that the JAX digest passes each file through.
+Still to come with later slices: ``load_native`` (the C++ scorer's ctypes
+binding) and the fault-injection hook that the JAX digest passes each file
+through.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import copy
 import hashlib
 import json
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -28,8 +29,10 @@ from torch import nn
 
 from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.models.graphsage import TopoGraph, TopoScorer
+from dragonfly2_tpu_torch.models.mlp import BandwidthMLP
 from dragonfly2_tpu_torch.models.weights import params_from_flax, params_to_flax
 from dragonfly2_tpu_torch.native.scorer import export_scorer_artifact
+from dragonfly2_tpu_torch.observability.sketches import FeatureSketch
 from dragonfly2_tpu_torch.trainer import _msgpack
 
 # Bumped whenever the flax param-tree structure changes; loaders refuse
@@ -115,22 +118,53 @@ def load_config(directory: str | Path) -> dict:
     return json.loads((Path(directory) / "config.json").read_text())
 
 
-def load_gnn(directory: str | Path) -> tuple[TopoScorer, "dict[str, torch.Tensor]"]:
-    """The artifact's TopoScorer (widths from ``config.json``, parameters
-    loaded, on the CPU) and its state_dict, ready for ``GNNScorer``. Raises
-    IncompatibleArtifact for another type or format, and on a parameter tree
-    that does not fit the model."""
+def _load_model(directory: str | Path, model_type: str, build: Callable[[dict], nn.Module]):
+    """The artifact's model (``build`` from ``config.json``, parameters
+    loaded, on the CPU) and its state_dict. Raises IncompatibleArtifact for
+    another type or format, and on a parameter tree that does not fit the
+    model."""
     cfg = load_config(directory)
-    if cfg.get("type") != "gnn":
-        raise IncompatibleArtifact(f"artifact {directory} holds a {cfg.get('type')!r} model, not 'gnn'")
+    if cfg.get("type") != model_type:
+        raise IncompatibleArtifact(f"artifact {directory} holds a {cfg.get('type')!r} model, not {model_type!r}")
     _check_format(cfg, directory)
-    model = TopoScorer(hidden=cfg["hidden"], embed_dim=cfg["embed_dim"], num_layers=cfg["num_layers"])
+    model = build(cfg)
     sd = params_from_flax(_msgpack.from_bytes((Path(directory) / "params.msgpack").read_bytes()))
     try:
         model.load_state_dict(sd)
     except RuntimeError as e:
         raise IncompatibleArtifact(f"artifact {directory}: parameters do not fit its config: {e}") from e
     return model, sd
+
+
+def load_gnn(directory: str | Path) -> tuple[TopoScorer, "dict[str, torch.Tensor]"]:
+    """The artifact's TopoScorer and its state_dict, ready for ``GNNScorer``."""
+    return _load_model(directory, "gnn", lambda cfg: TopoScorer(
+        hidden=cfg["hidden"], embed_dim=cfg["embed_dim"], num_layers=cfg["num_layers"]))
+
+
+def load_mlp(directory: str | Path) -> tuple[BandwidthMLP, "dict[str, torch.Tensor]"]:
+    """The artifact's BandwidthMLP (eval mode) and its state_dict."""
+    model, sd = _load_model(directory, "mlp", lambda cfg: BandwidthMLP(hidden=tuple(cfg["hidden"])))
+    return model.eval(), sd
+
+
+def save_sketch(directory: str | Path, sketch: FeatureSketch) -> Path:
+    """Write the training-reference feature sketch beside the params. Called
+    BEFORE artifact_digest, so the digest covers it like every other file —
+    a tampered/truncated sketch fails verify_artifact the same way tampered
+    weights do."""
+    p = Path(directory) / "sketch.json"
+    p.write_text(json.dumps(sketch.to_dict()))
+    return p
+
+
+def load_sketch(directory: str | Path) -> FeatureSketch | None:
+    """The artifact's training-reference FeatureSketch, or None for an
+    artifact written without one."""
+    p = Path(directory) / "sketch.json"
+    if not p.exists():
+        return None
+    return FeatureSketch.from_dict(json.loads(p.read_text()))
 
 
 def _host_array(a: Any) -> np.ndarray:

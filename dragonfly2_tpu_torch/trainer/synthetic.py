@@ -15,8 +15,8 @@ the history-less pairs and beat the linear baseline.
 
 The port's own copy of dragonfly2_tpu/trainer/synthetic.py: from the same
 seed it gives bit-equal numpy arrays (the tests hold it to that), wrapped in
-the port's TopoGraph. The telemetry-record generator waits for the dataset
-slice of the port.
+the port's TopoGraph. ``synth_telemetry_records`` gives the same raw
+download and probe records from the same seed.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from dragonfly2_tpu_torch.models.features import (  # noqa: F401 EDGE_FEATURE_DI
     NODE_FEATURE_DIM,
 )
 from dragonfly2_tpu_torch.models.graphsage import TopoGraph
+from dragonfly2_tpu_torch.telemetry.records import DOWNLOAD_DTYPE, PROBE_DTYPE
 
 
 class PairBatch(NamedTuple):
@@ -147,6 +148,44 @@ def make_cluster(
     graph = TopoGraph(node_feats, neighbors, mask, edge_feats)
     pairs = PairBatch(child, parent, feats, bw)
     return SyntheticCluster(graph, pairs, capacity, idc)
+
+
+def synth_telemetry_records(
+    n_downloads: int,
+    n_probes: int,
+    n_hosts: int,
+    seed: int = 0,
+    *,
+    frac_failed: float = 0.05,
+    frac_no_parent: float = 0.05,
+    rtt_grid: float | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Plausible raw telemetry (DOWNLOAD_DTYPE + PROBE_DTYPE structured
+    arrays), generated vectorized. rtt_grid quantizes RTTs to multiples of
+    `rtt_grid`, making per-edge means exact in float32 AND float64
+    (deterministic sort tie-breaks)."""
+    rng = np.random.default_rng(seed)
+    hosts = np.array([f"host-{i:06d}".encode() for i in range(n_hosts)], dtype="S64")
+    d = np.zeros(n_downloads, DOWNLOAD_DTYPE)
+    if n_downloads:
+        d["child_host_id"] = hosts[rng.integers(0, n_hosts, n_downloads)]
+        d["parent_host_id"] = hosts[rng.integers(0, n_hosts, n_downloads)]
+        d["parent_host_id"][rng.random(n_downloads) < frac_no_parent] = b""
+        d["success"] = rng.random(n_downloads) > frac_failed
+        d["bandwidth_bps"] = rng.lognormal(19.0, 1.5, n_downloads).astype(np.float32)
+        d["pair_features"] = rng.random((n_downloads, 16)).astype(np.float32)
+    p = np.zeros(n_probes, PROBE_DTYPE)
+    if n_probes:
+        p["src_host_id"] = hosts[rng.integers(0, n_hosts, n_probes)]
+        p["dst_host_id"] = hosts[rng.integers(0, n_hosts, n_probes)]
+        rtts = rng.random(n_probes) * 50
+        if rtt_grid is not None:
+            rtts = np.round(rtts / rtt_grid) * rtt_grid
+        p["rtt_mean_ms"] = rtts.astype(np.float32)
+        p["rtt_std_ms"] = (rng.random(n_probes) * 5).astype(np.float32)
+        p["rtt_min_ms"] = (rng.random(n_probes) * 20).astype(np.float32)
+        p["probe_count"] = rng.integers(1, 40, n_probes)
+    return d, p
 
 
 def sample_batch(pairs: PairBatch, batch_size: int, rng: np.random.Generator) -> PairBatch:

@@ -78,7 +78,10 @@ class ClippedAdamW:
     and scale every step). AdamW (b1 0.9, b2 0.999, eps 1e-8) decays every
     parameter, biases and LayerNorm scales included, as optax's ``adamw``
     does with no mask. The learning rate is the schedule at the step count
-    before the update, so with a warm-up the first step runs at lr 0.
+    before the update, so with a warm-up the first step runs at lr 0. With
+    ``max_norm=None``, ``weight_decay=0`` and a constant schedule it is
+    ``optax.adam`` (the MLP trainer's optimizer): no clip, and a decay term
+    of ``0·p`` that leaves every finite update as it is.
 
     It is written out rather than taken from ``torch.optim.AdamW`` for one
     number: optax computes Adam's bias corrections ``1 - b**t`` in float32,
@@ -87,12 +90,14 @@ class ClippedAdamW:
     they are float32 too. Nothing reads a device value on the host.
     """
 
-    max_norm, b1, b2, eps = 1.0, 0.9, 0.999, 1e-8  # init_state's optax chain
+    b1, b2, eps = 0.9, 0.999, 1e-8  # optax's adam and adamw defaults
 
-    def __init__(self, params, schedule: Callable[[int], float], *, weight_decay: float):
+    def __init__(self, params, schedule: Callable[[int], float], *, weight_decay: float,
+                 max_norm: float | None = 1.0):
         self.params = [p for p in params if p.requires_grad]
         self.schedule = schedule
         self.weight_decay = weight_decay
+        self.max_norm = max_norm
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
@@ -104,13 +109,14 @@ class ClippedAdamW:
     @torch.no_grad()
     def step(self, count: int) -> torch.Tensor:
         """Clip the parameters' ``.grad`` and take one AdamW step at
-        ``schedule(count)``. Returns the pre-clip global gradient norm, a
-        float32 scalar on the parameters' device."""
+        ``schedule(count)``. Returns the pre-clip global gradient norm
+        (``optax.global_norm``), a float32 scalar on the parameters' device."""
         grads = [p.grad for p in self.params]
         gnorm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        # 1 below the threshold, ‖g‖/max_norm at or above it: optax's select
-        denom = torch.clamp(gnorm / self.max_norm, min=1.0)
-        grads = [g / denom for g in grads]
+        if self.max_norm is not None:
+            # 1 below the threshold, ‖g‖/max_norm at or above it: optax's select
+            denom = torch.clamp(gnorm / self.max_norm, min=1.0)
+            grads = [g / denom for g in grads]
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)

@@ -1,10 +1,11 @@
 """The port's artifacts against the JAX package's, on the CPU.
 
 The port's msgpack codec must write what ``flax.serialization`` writes for a
-parameter tree and read it back; an artifact written by either package must
-load into the other and score the same rounds; ``scorer.dfsc`` must be byte
-for byte the JAX export for the same embeddings; and the directory digest
-must be the JAX one, failing on a flipped byte.
+parameter tree and read it back; a GNN or MLP artifact written by either
+package must load into the other (the GNN scoring the same rounds), and so
+must ``sketch.json``; ``scorer.dfsc`` must be byte for byte the JAX export
+for the same embeddings; and the directory digest must be the JAX one,
+failing on a flipped byte in the parameters or the sketch.
 """
 
 import json
@@ -16,14 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+from dragonfly2_tpu.models.mlp import BandwidthMLP as JaxBandwidthMLP
 from dragonfly2_tpu.models.scorer import GNNScorer as JaxGNNScorer
+from dragonfly2_tpu.observability import sketches as jax_sketches
 from dragonfly2_tpu.native import scorer as jax_native
 from dragonfly2_tpu.trainer import artifacts as jax_artifacts
 from dragonfly2_tpu.trainer import synthetic as jax_synthetic
 from dragonfly2_tpu.trainer import train_gnn as jax_train
-from dragonfly2_tpu_torch.models import GNNScorer, TopoScorer
+from dragonfly2_tpu_torch.models import BandwidthMLP, GNNScorer, TopoScorer
 from dragonfly2_tpu_torch.models.weights import init_flax_like, params_from_flax, params_to_flax
 from dragonfly2_tpu_torch.native import export_scorer_artifact
+from dragonfly2_tpu_torch.observability import sketches
 from dragonfly2_tpu_torch.trainer import _msgpack, artifacts, synthetic
 
 # One intra-op thread: the suite runs six xdist workers on the host's cores
@@ -197,3 +201,82 @@ def test_load_gnn_refuses_other_formats_types_and_shapes(setup, tmp_path):
         with pytest.raises(artifacts.IncompatibleArtifact):
             artifacts.load_gnn(d)
     assert artifacts.load_config(tmp_path / "wide")["hidden"] == 64
+
+
+MLP_HIDDEN = (32, 16)
+
+
+def _mlp_inputs():
+    return np.random.default_rng(6).random((64, 16)).astype(np.float32)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_mlp_artifact_loads_across_packages(writer, tmp_path):
+    d = tmp_path / writer
+    if writer == "port":
+        model = BandwidthMLP(hidden=MLP_HIDDEN)
+        model.load_state_dict(params_from_flax(init_flax_like(model, seed=7)))
+        artifacts.save_artifact(d, model_type="mlp", version="v1", params=model, config={"hidden": list(MLP_HIDDEN)})
+        jmodel, jparams = jax_artifacts.load_mlp(d)
+        params = params_to_flax(model)
+    else:
+        jmodel = JaxBandwidthMLP(hidden=MLP_HIDDEN)
+        params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(7), np.zeros((8, 16), np.float32)))
+        jax_artifacts.save_artifact(d, model_type="mlp", version="v1", params=params, config={"hidden": list(MLP_HIDDEN)})
+        jparams = params
+    model, sd = artifacts.load_mlp(d)
+    assert isinstance(model, BandwidthMLP) and model.hidden == MLP_HIDDEN and not model.training
+    want, got = params_to_flax(sd), jax.tree.map(np.asarray, jparams)
+    assert jax.tree.structure(want) == jax.tree.structure(got) == jax.tree.structure(params)
+    assert all(np.array_equal(a, b) for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got)))
+    x = _mlp_inputs()
+    with torch.inference_mode():
+        mine = model(torch.from_numpy(x)).numpy()
+    assert np.abs(mine - np.asarray(jmodel.apply(jparams, x))).max() <= SCORE_MAX_ABS
+    with pytest.raises(artifacts.IncompatibleArtifact):
+        artifacts.load_gnn(d)
+
+
+def test_load_mlp_refuses_other_types_and_shapes(setup, tmp_path):
+    _, _, params = setup
+    artifacts.save_artifact(tmp_path / "gnn", model_type="gnn", version="v", params=params_from_flax(params),
+                            config=CFG)
+    with pytest.raises(artifacts.IncompatibleArtifact):
+        artifacts.load_mlp(tmp_path / "gnn")
+    model = BandwidthMLP(hidden=MLP_HIDDEN)
+    artifacts.save_artifact(tmp_path / "wide", model_type="mlp", version="v", params=model, config={"hidden": [64]})
+    with pytest.raises(artifacts.IncompatibleArtifact, match="do not fit"):
+        artifacts.load_mlp(tmp_path / "wide")
+
+
+def _sketch(mod, seed):
+    sk = mod.FeatureSketch(16, names=[f"f{i}" for i in range(16)])
+    x = np.random.default_rng(seed).normal(0.5, 0.4, (300, 16)).astype(np.float32)
+    x[0, 0] = np.nan
+    sk.update(x)
+    return sk
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_sketch_json_crosses_packages_and_the_digest_covers_it(writer, tmp_path):
+    d = tmp_path / writer
+    model = BandwidthMLP(hidden=MLP_HIDDEN)
+    artifacts.save_artifact(d, model_type="mlp", version="v2", params=model, config={"hidden": list(MLP_HIDDEN)})
+    assert artifacts.load_sketch(d) is None and jax_artifacts.load_sketch(d) is None  # written without one
+    if writer == "port":
+        sk = _sketch(sketches, 8)
+        assert artifacts.save_sketch(d, sk) == d / "sketch.json"
+    else:
+        sk = _sketch(jax_sketches, 8)
+        jax_artifacts.save_sketch(d, sk)
+    for loaded in (artifacts.load_sketch(d), jax_artifacts.load_sketch(d)):
+        np.testing.assert_array_equal(loaded.counts, sk.counts)
+        assert (loaded.rows, loaded.names, loaded.created_at) == (sk.rows, sk.names, sk.created_at)
+    assert isinstance(artifacts.load_sketch(d), sketches.FeatureSketch)
+    digest = artifacts.artifact_digest(d)
+    assert digest == jax_artifacts.artifact_digest(d)
+    artifacts.verify_artifact(d, digest)
+    raw = (d / "sketch.json").read_text()
+    (d / "sketch.json").write_text(raw.replace('"rows": 300', '"rows": 301'))
+    with pytest.raises(artifacts.ArtifactIntegrityError, match="digest mismatch"):
+        artifacts.verify_artifact(d, digest)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, serving and training on a card, against their plain versions.
+"""The port's CUDA kernels, serving, training and the trainer service on a card, against their plain versions.
 
 Every test here is marked ``cuda`` and decides inside its fixture whether a
 card is present, skipping with a reason on a host without one. The file
@@ -8,13 +8,17 @@ a card and no JAX (the JAX test bootstrap in conftest.py is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import asyncio
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
 from dragonfly2_tpu_torch.models import GNNScorer, TopoScorer, init_flax_like, params_from_flax
 from dragonfly2_tpu_torch.ops import neighbor_agg, neighbor_agg_cuda
-from dragonfly2_tpu_torch.trainer import synthetic, train_gnn
+from dragonfly2_tpu_torch.trainer import artifacts, dataset, synthetic, train_gnn, train_mlp
+from dragonfly2_tpu_torch.trainer.service import TrainerConfig, TrainerService, pack_records
 
 # One intra-op thread: the suite runs six xdist workers on the host's cores
 # beside JAX's thread pools, and torch's default of one thread per core
@@ -241,3 +245,57 @@ def test_gnn_scorer_on_card_matches_cpu(card):
     bad.refresh(cluster.graph)
     with pytest.raises(ValueError, match="out of range"):  # checked on the host, no device assert
         bad.score(feats[0], child=child[0] + 256, parent=parent[0])
+
+
+def test_mlp_train_steps_on_card_match_cpu(card):
+    cluster = synthetic.make_cluster(num_nodes=128, num_neighbors=8, num_pairs=4096, seed=5)
+    cfg = train_mlp.MLPTrainConfig(batch_size=512)
+    start = init_flax_like(train_mlp.make_model(cfg), seed=0)
+    rng = np.random.default_rng(3)
+    batches = [synthetic.sample_batch(cluster.pairs, 512, rng) for _ in range(3)]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        model = train_mlp.make_model(cfg)
+        model.load_state_dict(params_from_flax(start))
+        model.to(dev)
+        opt = train_mlp.make_optimizer(cfg, model.parameters())
+        losses = [float(train_mlp.train_step(model, opt, i, torch.from_numpy(b.feats).to(dev),
+                                             torch.from_numpy(b.label).to(dev))[0]) for i, b in enumerate(batches)]
+        out[dev.type] = (losses, {k: v.cpu() for k, v in model.state_dict().items()})
+    (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
+    assert np.abs(np.array(lg) - np.array(lc)).max() <= 2e-3
+    assert max(float((pg[k] - pc[k]).abs().max()) for k in pc) <= 1e-2
+    model, ev = train_mlp.train(train_mlp.MLPTrainConfig(steps=20, batch_size=256), cluster.pairs,
+                                eval_pairs=cluster.pairs, params=start)  # the card by default
+    assert next(model.parameters()).is_cuda and np.isfinite(ev["eval_mse"])
+
+
+def test_trainer_service_on_card_gives_verified_artifacts(card, tmp_path):
+    d, p = synthetic.synth_telemetry_records(3000, 2000, 200, seed=7)
+    cfg = TrainerConfig(model_dir=str(tmp_path), mlp=train_mlp.MLPTrainConfig(steps=40, batch_size=512),
+                        gnn=train_gnn.GNNTrainConfig(hidden=64, embed_dim=32, num_layers=2, batch_size=512),
+                        gnn_steps=20)  # the card by default
+
+    async def body():
+        svc = TrainerService(cfg)
+        token = (await svc.train_open({"hostname": "s"}))["token"]
+        for kind, arr in (("downloads", d), ("probes", p)):
+            for s in range(0, len(arr), 512):
+                await svc.train_chunk(  # dflint: disable=DF025 the upload protocol is one train_chunk per chunk
+                    {"token": token, "kind": kind, "data": pack_records(arr[s : s + 512])})
+        await svc.train_close({"token": token})
+        await svc.wait_idle()
+        return svc.last_result
+
+    res = asyncio.run(body())
+    assert "mlp" in res and "gnn" in res, res
+    for m in ("mlp", "gnn"):
+        artifacts.verify_artifact(res[m]["artifact"], res[m]["digest"])
+    assert (pathlib.Path(res["gnn"]["artifact"]) / "scorer.dfsc").exists()
+    graph, _ = artifacts.load_graph(res["gnn"]["artifact"])
+    want = dataset.build_dataset(d, p)
+    assert all(np.array_equal(a, b) for a, b in zip(graph, want.graph))
+    model, _ = artifacts.load_mlp(res["mlp"]["artifact"])
+    x = torch.from_numpy(want.pairs.feats[:1000])
+    with torch.inference_mode():
+        assert np.abs(model.to(card)(x.to(card)).cpu().numpy() - model.cpu()(x).numpy()).max() <= 5e-3
