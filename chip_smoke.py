@@ -45,7 +45,21 @@ Phases, each of which must hold or the run exits non-zero at once:
              one-shot build_dataset's bit for bit and both sketches its counts;
              the loaded MLP on the card is held against the CPU over the eval
              split, and 3 MLP steps on the card against 3 on the CPU.
-7. kernels   each kernel against its plain PyTorch version on the card, at the
+7. sharded   the sharded trainer (parallel/) in a world of one under NCCL: a
+             process group on a free localhost port and make_mesh()'s (1, 1)
+             mesh; train_async(mesh=) at the training phase's widths, 2 calls
+             of 10 steps, against train_async(device="cuda") from the same
+             start and seed (losses within 2e-3 and 1e-4, parameters within
+             1e-2 and 1e-3: a world of one runs no real collective, which
+             only the CPU tests' four gloo ranks exercise);
+             launch_localhost(1, mp_train, local_devices=0), a subprocess that
+             joins NCCL from DF_DIST_* alone, whose losses must fall; then
+             about 1 GiB of bf16 and f32 tensors from a seed written as
+             safetensors and staged onto the card whole and with
+             param_leaf_placements on the mesh, each bit-equal to its source.
+             Steps/s of both runs, peak memory and staging GB/s. One card is a
+             world of one: NCCL puts no two ranks on one device.
+8. kernels   each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
@@ -87,6 +101,11 @@ from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import (
     transpose_index,
 )
 from dragonfly2_tpu_torch import resolve_device
+from dragonfly2_tpu_torch.models.weights import full_state_dict
+from dragonfly2_tpu_torch.parallel import distributed as dist_lib
+from dragonfly2_tpu_torch.parallel import mesh as meshlib
+from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
+from dragonfly2_tpu_torch.tpuvm import staging
 from dragonfly2_tpu_torch.trainer import artifacts, dataset, train_gnn, train_mlp
 from dragonfly2_tpu_torch.trainer.service import TrainerConfig, TrainerService, pack_records
 from dragonfly2_tpu_torch.trainer.synthetic import make_cluster, sample_batch, synth_telemetry_records
@@ -108,6 +127,16 @@ RELOAD_SCORE_MAX_ABS = 1e-6
 INGEST_ROWS, INGEST_HOSTS, INGEST_SEED, INGEST_CHUNK = 500_000, 16384, 7, 65536
 INGEST_GNN_STEPS = 100  # the one cut: TrainerConfig's default is 300
 MLP_CPU_STEPS, MLP_EVAL_MAX_ABS = 3, 5e-3
+# the sharded phase: the training phase's shape on a (1, 1) mesh, held to the
+# card-vs-CPU bounds and to tight ones: on a world of one the collectives are
+# identities, so the mesh run differs from one device only by the order of
+# the backward's atomic adds (tests/test_torch_parallel.py holds mesh against
+# one process to the same 1e-4 / 1e-3); mp_train's own cluster (128 hosts, 12 steps)
+SHARDED_CALLS, MP_TRAIN_DEADLINE_S = 2, 300.0
+SHARDED_LOSS_MAX_ABS, SHARDED_PARAM_MAX_ABS = 1e-4, 1e-3
+# about 1 GiB of checkpoint-like tensors: 7 bf16 [8192, 8192] weights, one
+# f32 [8192, 4096] and two f32 [8192] vectors
+STAGE_BF16, STAGE_F32, STAGE_SEED = [(8192, 8192)] * 7, [(8192, 4096), (8192,), (8192,)], 17
 # tests/test_ops.py's own tolerances for the Pallas kernel against XLA
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 EMBED_MIN_COSINE, SCORE_MAX_ABS = 0.999, 5e-3
@@ -333,15 +362,16 @@ class StepClock:
         self.steps.append((loss, grad_norm))
 
 
-def train_run(cluster, cfg, calls: int) -> tuple[train_gnn.TrainState, list[float], dict]:
-    """train_async through the multi-step path; its numbers."""
+def train_run(cluster, cfg, calls: int, mesh=None) -> tuple[train_gnn.TrainState, list[float], dict]:
+    """train_async through the multi-step path, on the card or on ``mesh``; its numbers."""
     clock = StepClock(STEPS_PER_CALL)
     torch.cuda.reset_peak_memory_stats()
+    where = {"device": "cuda"} if mesh is None else {"mesh": mesh}
     t0 = time.perf_counter()
     state, losses = asyncio.run(train_gnn.train_async(
-        cfg, cluster.graph, cluster.pairs, steps=calls * STEPS_PER_CALL, device="cuda", seed=WEIGHT_SEED,
+        cfg, cluster.graph, cluster.pairs, steps=calls * STEPS_PER_CALL, seed=WEIGHT_SEED,
         steps_per_call=STEPS_PER_CALL, log_every=STEPS_PER_CALL, log=lambda line: print(f"    train_async: {line}"),
-        telemetry=clock,
+        telemetry=clock, **where,
     ))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -360,7 +390,7 @@ def train_run(cluster, cfg, calls: int) -> tuple[train_gnn.TrainState, list[floa
         "max_memory_allocated_bytes": peak,
     }
     rate_txt = ", ".join(f"{r:.2f}" for r in rates) or "n/a (one call)"
-    print(f"  remat={cfg.remat}: {len(losses)} steps in {calls} calls, loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+    print(f"  {'mesh ' if mesh is not None else ''}remat={cfg.remat}: {len(losses)} steps in {calls} calls, loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"steps/s after the first call {rate_txt}; first call {first_s:.2f} s with set-up; "
           f"peak device memory {peak / 2**30:.2f} GiB; on_step calls {len(clock.steps)}")
     return state, losses, numbers
@@ -566,6 +596,115 @@ def ingest() -> dict:
           f"{mlp_ev['train_seconds']} s, {numbers['mlp_steps_per_s']} steps/s; GNN {gnn_ev['train_seconds']} s, "
           f"{numbers['gnn_steps_per_s']} steps/s; close to idle {run_s:.2f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB; phase {numbers['wall_s']:.1f} s")
+    return numbers
+
+
+def sharded_training(cluster, mesh) -> dict:
+    """train_async on the (1, 1) mesh against train_async on the card, from
+    the same start and seed."""
+    plain_state, plain_losses, plain = train_run(cluster, TRAIN, SHARDED_CALLS)
+    want = {k: v.detach().cpu() for k, v in plain_state.model.state_dict().items()}
+    del plain_state
+    state, losses, sharded = train_run(cluster, TRAIN, SHARDED_CALLS, mesh=mesh)
+    got = {k: v.cpu() for k, v in full_state_dict(state.model).items()}
+    placed = {type(p).__name__ for p in (*state.optimizer.params, *state.optimizer.mu, *state.optimizer.nu)}
+    del state
+    loss_err = float(np.abs(np.array(losses) - np.array(plain_losses)).max())
+    param_err = max(float((got[k] - want[k]).abs().max()) for k in want)
+    rate = {name: n["steps_per_s_after_first_call"][-1] for name, n in (("plain", plain), ("mesh", sharded))}
+    print(f"  mesh (1, 1) vs one device, {len(losses)} steps: losses max abs {loss_err:.3g}, parameters max abs "
+          f"{param_err:.3g}; second call {rate['mesh']:.2f} steps/s on the mesh against {rate['plain']:.2f} "
+          f"({1e3 / rate['mesh'] - 1e3 / rate['plain']:.2f} ms a step more); peak device memory "
+          f"{sharded['max_memory_allocated_bytes'] / 2**30:.2f} / {plain['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
+          f"parameters and moments are {placed}")
+    if placed != {"DTensor"}:
+        raise AssertionError(f"the mesh run's parameters and moments are {placed}, not DTensors")
+    if loss_err > TRAIN_LOSS_MAX_ABS or param_err > TRAIN_PARAM_MAX_ABS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"the mesh and one device disagree: loss {loss_err} > {TRAIN_LOSS_MAX_ABS} "
+                             f"or parameters {param_err} > {TRAIN_PARAM_MAX_ABS}")
+    if loss_err > SHARDED_LOSS_MAX_ABS or param_err > SHARDED_PARAM_MAX_ABS:
+        raise AssertionError(f"a world of one parts from one device by more than ordering: loss {loss_err} > "
+                             f"{SHARDED_LOSS_MAX_ABS} or parameters {param_err} > {SHARDED_PARAM_MAX_ABS}")
+    return {"plain": plain, "mesh": sharded, "loss_max_abs": loss_err, "param_max_abs": param_err}
+
+
+def mp_train_subprocess() -> dict:
+    """mp_train as a one-process NCCL job that joins from DF_DIST_* alone."""
+    t0 = time.perf_counter()
+    (done,) = dist_lib.launch_localhost(1, "dragonfly2_tpu_torch.parallel.mp_train", local_devices=0,
+                                        timeout=MP_TRAIN_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    lines = done.stdout.splitlines()
+    ok = next((line for line in lines if line.startswith("mp_train ok")), "")
+    payload = next((line for line in lines if line.startswith("MP_LOSSES ")), None)
+    if payload is None or "device=cuda" not in ok:
+        raise AssertionError(f"mp_train printed no losses on the card: {done.stdout[-500:]} {done.stderr[-1500:]}")
+    losses = json.loads(payload[len("MP_LOSSES "):])
+    falls = bool(np.all(np.isfinite(losses)) and np.mean(losses[-3:]) < 0.5 * np.mean(losses[:3]))
+    print(f"  {ok}; losses {losses[0]:.5f} -> {losses[-1]:.5f}; {wall:.1f} s with start-up")
+    if not falls:
+        raise AssertionError(f"mp_train's losses are not finite or did not fall by half: {losses}")
+    return {"line": ok, "losses": losses, "wall_s": wall}
+
+
+def stage_source() -> dict[str, np.ndarray]:
+    """The checkpoint to stage, from a seed: bf16 (as uint16 bits) and f32."""
+    rng = np.random.default_rng(STAGE_SEED)
+    out = {}
+    for i, shape in enumerate(STAGE_BF16):
+        x = rng.standard_normal(shape, dtype=np.float32) * 0.02
+        out[f"layers.{i}.w"] = (x.view(np.uint32) >> 16).astype(np.uint16)
+    for i, shape in enumerate(STAGE_F32):
+        out[f"f32.{i}"] = rng.standard_normal(shape, dtype=np.float32)
+    return out
+
+
+def staged_bits(t) -> np.ndarray:
+    t = t.full_tensor() if hasattr(t, "full_tensor") else t
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def stage_on_card(mesh) -> dict:
+    """About 1 GiB written as safetensors, staged whole and on the mesh."""
+    src = stage_source()
+    bf16 = [k for k in src if k.startswith("layers.")]
+    nbytes = sum(a.nbytes for a in src.values())
+    numbers = {"tensors": len(src), "bytes": nbytes}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = stlib.write_safetensors(pathlib.Path(tmp) / "checkpoint.safetensors", src, bf16_names=bf16)
+        header = stlib.read_header(path)
+        placements = {k: meshlib.param_leaf_placements(header[k]["shape"], mesh) for k in src}
+        for how, kw in (("whole", {"device": "cuda"}), ("mesh", {"mesh": mesh, "placements": placements})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            staged = staging.stage_tensors(path, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            wrong = [k for k, a in src.items()
+                     if staged_bits(staged[k]).tobytes() != (a.view(np.int16) if k in bf16 else a).tobytes()]
+            kinds = {type(t).__name__ for t in staged.values()}
+            del staged
+            print(f"  staged {len(src)} tensors ({nbytes / 2**30:.3f} GiB) {how}: {dt:.3f} s, "
+                  f"{nbytes / dt / 1e9:.2f} GB/s (host clock, closed by a synchronise); {kinds}; "
+                  f"bit-equal to the source: {not wrong}")
+            if wrong:
+                raise AssertionError(f"staging {how} changed {wrong}")
+            numbers[f"{how}_s"], numbers[f"{how}_gb_per_s"] = dt, nbytes / dt / 1e9
+    return numbers
+
+
+def sharded(cluster) -> dict:
+    """The sharded trainer in a world of one under NCCL, mp_train in a
+    subprocess, and staging onto the card."""
+    dist_lib.initialize(dist_lib.DistributedConfig(num_processes=1, local_device_count=0))
+    try:
+        mesh = meshlib.make_mesh()
+        if meshlib.axis_sizes(mesh) != (1, 1) or mesh.device_type != "cuda":
+            raise AssertionError(f"a world of one gave the mesh {mesh}")
+        numbers = {"training": sharded_training(cluster, mesh), "mp_train": mp_train_subprocess(),
+                   "staging": stage_on_card(mesh)}
+    finally:
+        dist_lib.shutdown()
     return numbers
 
 
@@ -867,6 +1006,15 @@ def main() -> int:
         numbers["kernel_launches"] = seen = counts()
         launches = {k: launches[k] + v for k, v in seen.items()}
         print(json.dumps({"ingest": numbers, "card": card}))
+
+    with phase("sharded"):
+        zero_counts()
+        numbers = sharded(cluster)
+        # no kernel is on this path: the sharded step runs SAGELayer's plain ops
+        numbers["kernel_launches"] = seen = counts()
+        if any(seen.values()):
+            raise AssertionError(f"the sharded path launched a kernel it does not call: {seen}")
+        print(json.dumps({"sharded": numbers, "card": card}))
 
     with phase("kernels"):
         g = cluster.graph.to("cuda")

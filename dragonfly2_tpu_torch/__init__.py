@@ -11,8 +11,14 @@ Layout:
   ops/            neighbour gather / masked mean, and the hand-written CUDA
                   neighbour-aggregation kernel (csrc/neighbor_agg.cu)
   trainer/        synthetic cluster and telemetry generators, the
-                  telemetry-to-dataset ingest, MLP and GNN training, the
-                  trainer service, artifacts
+                  telemetry-to-dataset ingest, MLP and GNN training (on one
+                  device or sharded over a mesh), the trainer service,
+                  artifacts
+  parallel/       the ("data", "model") DeviceMesh and its placement rules,
+                  process-group set-up (gloo on the CPU, NCCL on the card),
+                  the localhost launcher and one multi-process training job
+  tpuvm/          safetensors reader/writer and checkpoint staging onto the
+                  card or a mesh
   telemetry/      the download and probe record schemas
   observability/  metric registry, span tracer, feature sketch
   utils/          the injectable clock

@@ -44,10 +44,19 @@ def params_from_flax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]
     return out
 
 
+def full_state_dict(params: nn.Module | Mapping[str, torch.Tensor]) -> "OrderedDict[str, torch.Tensor]":
+    """A module's or state_dict's tensors, each DTensor gathered to its full
+    tensor (``full_tensor()``, a collective: on a mesh every rank calls
+    this alike), so a model trained on a mesh gives what one device would."""
+    sd = params.state_dict() if isinstance(params, nn.Module) else params
+    return OrderedDict((k, v.full_tensor() if hasattr(v, "full_tensor") else v) for k, v in sd.items())
+
+
 def params_to_flax(params: nn.Module | Mapping[str, torch.Tensor]) -> dict:
     """The inverse of ``params_from_flax``: a module or state_dict as the
-    flax tree ``{"params": {...}}`` with float32 numpy leaves."""
-    sd = params.state_dict() if isinstance(params, nn.Module) else params
+    flax tree ``{"params": {...}}`` with float32 numpy leaves (DTensors
+    gathered, as ``full_state_dict`` does)."""
+    sd = full_state_dict(params)
     tree: dict = {}
     for name, val in sd.items():
         *path, leaf = name.split(".")

@@ -1,6 +1,6 @@
 """Training-side code of the port: the synthetic cluster and telemetry
 generators, the telemetry-to-dataset ingest, MLP and GNN training on one
-device, the trainer service that joins them, and the artifacts it
+device or a mesh, the trainer service that joins them, and the artifacts it
 publishes."""
 
 from dragonfly2_tpu_torch.trainer.artifacts import (  # noqa: F401
@@ -38,6 +38,8 @@ from dragonfly2_tpu_torch.trainer.train_gnn import (  # noqa: F401
     init_state,
     make_multi_step,
     make_train_step,
+    shard_for_training,
+    shard_for_training_scan,
     train,
     train_async,
     train_step,

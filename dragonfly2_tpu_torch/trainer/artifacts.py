@@ -30,7 +30,7 @@ from torch import nn
 from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.models.graphsage import TopoGraph, TopoScorer
 from dragonfly2_tpu_torch.models.mlp import BandwidthMLP
-from dragonfly2_tpu_torch.models.weights import params_from_flax, params_to_flax
+from dragonfly2_tpu_torch.models.weights import full_state_dict, params_from_flax, params_to_flax
 from dragonfly2_tpu_torch.native.scorer import export_scorer_artifact
 from dragonfly2_tpu_torch.observability.sketches import FeatureSketch
 from dragonfly2_tpu_torch.trainer import _msgpack
@@ -86,19 +86,17 @@ def verify_artifact(directory: str | Path, expected_digest: str) -> None:
         )
 
 
-def _state_dict(params: nn.Module | Mapping[str, torch.Tensor]) -> Mapping[str, torch.Tensor]:
-    return params.state_dict() if isinstance(params, nn.Module) else params
-
-
 def save_artifact(
     directory: str | Path, *, model_type: str, version: str,
     params: nn.Module | Mapping[str, torch.Tensor], config: dict,
 ) -> Path:
     """Write ``params.msgpack`` (the module's or state_dict's parameters as
-    the flax tree) and ``config.json``."""
+    the flax tree) and ``config.json``. A model trained on a mesh has its
+    DTensors gathered to full tensors (every rank calls this alike), so it
+    publishes the same artifact a single-device run does."""
     d = Path(directory)
     d.mkdir(parents=True, exist_ok=True)
-    (d / "params.msgpack").write_bytes(_msgpack.to_bytes(params_to_flax(_state_dict(params))))
+    (d / "params.msgpack").write_bytes(_msgpack.to_bytes(params_to_flax(params)))
     (d / "config.json").write_text(
         json.dumps({"type": model_type, "version": version, "format": ARTIFACT_FORMAT, **config})
     )
@@ -204,7 +202,7 @@ def save_native(
     once with ``model.embed`` on ``device`` (the card unless one is named),
     then the head weights + embeddings in the C++ scorer's binary format."""
     dev = resolve_device(device)
-    sd = _state_dict(params)
+    sd = full_state_dict(params)
     m = copy.deepcopy(model).to(dev).eval()
     m.load_state_dict(sd)
     with torch.inference_mode():

@@ -1,4 +1,4 @@
-"""GNN training on one device, in PyTorch (north-star configs 2-3).
+"""GNN training on one device or a mesh, in PyTorch (north-star configs 2-3).
 
 The port of dragonfly2_tpu/trainer/train_gnn.py. One train step is the MSE
 of ``TopoScorer`` against observed bandwidth, a global-norm clip in optax's
@@ -6,9 +6,12 @@ form and AdamW on a warm-up + cosine schedule, as the JAX package's optax
 chain (``train_gnn.py:61-69``) defines it. Parameters, gradients and
 optimizer state are float32; the model computes in bfloat16.
 
-The JAX package shards the step over a ("data", "model") mesh. Here every
-entry point takes ``device=`` instead (the card unless the caller names
-another); the mesh and the ``parallel/`` rules are still to come.
+Every entry point runs on one ``device=`` (the card unless the caller names
+another) or, as in the JAX package, sharded over a ("data", "model") mesh
+(``mesh=``, parallel/mesh.py): parameters and Adam's moments become DTensors
+placed by ``param_leaf_placements``, graph node rows and batch rows are
+row-sharded over "data", and DTensor inserts the collectives that XLA
+inserts from the JAX package's sharding annotations.
 """
 
 from __future__ import annotations
@@ -17,15 +20,19 @@ import asyncio
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.models.graphsage import TopoGraph, TopoScorer
 from dragonfly2_tpu_torch.models.weights import init_flax_like, params_from_flax
+from dragonfly2_tpu_torch.parallel import distributed as dist_lib
+from dragonfly2_tpu_torch.parallel import mesh as meshlib
 from dragonfly2_tpu_torch.trainer.synthetic import PairBatch, sample_batch
 
 
@@ -88,6 +95,19 @@ class ClippedAdamW:
     and ``1 - 0.999`` in float32 is 1.3e-5 away from 0.001, which moves the
     first steps' updates by 6e-6 against torch's float64 corrections. Here
     they are float32 too. Nothing reads a device value on the host.
+
+    On a mesh the parameters are DTensors and ``mu``/``nu`` are DTensors of
+    the same placements (``zeros_like``), as JAX gives every optimizer leaf
+    its parameter's sharding. A gradient comes back from autograd in
+    whatever layout the backward left (a weight placed ``(Replicate(),
+    Shard(0))`` comes back ``(Partial(sum), Shard(0))``), so each is first
+    redistributed to its parameter's placements: the sum over "data" happens
+    there. Everything after is elementwise on identically placed tensors,
+    so the update runs on the local shards, whose ``_foreach`` lists then
+    hold plain tensors only (torch refuses a list that mixes DTensors and
+    plain tensors). The global norm is the norm of the full gradients: a
+    leaf sharded over "model" sums its shards' squares over that axis, so it
+    counts once, not tp times.
     """
 
     b1, b2, eps = 0.9, 0.999, 1e-8  # optax's adam and adamw defaults
@@ -110,25 +130,59 @@ class ClippedAdamW:
     def step(self, count: int) -> torch.Tensor:
         """Clip the parameters' ``.grad`` and take one AdamW step at
         ``schedule(count)``. Returns the pre-clip global gradient norm
-        (``optax.global_norm``), a float32 scalar on the parameters' device."""
-        grads = [p.grad for p in self.params]
-        gnorm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        (``optax.global_norm``), a float32 scalar on the parameters' device
+        (this rank's, on a mesh)."""
+        params, mu, nu = self.params, self.mu, self.nu
+        grads = [p.grad for p in params]
+        if isinstance(params[0], DTensor):
+            grads = [g.redistribute(p.device_mesh, p.placements).to_local() for g, p in zip(grads, params)]
+            gnorm = self._sharded_global_norm(grads)
+            params, mu, nu = ([t.to_local() for t in ts] for ts in (params, mu, nu))
+        else:
+            gnorm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         if self.max_norm is not None:
             # 1 below the threshold, ‖g‖/max_norm at or above it: optax's select
             denom = torch.clamp(gnorm / self.max_norm, min=1.0)
             grads = [g / denom for g in grads]
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.b2)
-        mu_hat = torch._foreach_div(self.mu, self._bias_correction(self.b1, count))
-        den = torch._foreach_div(self.nu, self._bias_correction(self.b2, count))
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
+        mu_hat = torch._foreach_div(mu, self._bias_correction(self.b1, count))
+        den = torch._foreach_div(nu, self._bias_correction(self.b2, count))
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         update = torch._foreach_div(mu_hat, den)
-        torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-self.schedule(count))
+        torch._foreach_add_(update, params, alpha=self.weight_decay)
+        torch._foreach_add_(params, update, alpha=-self.schedule(count))
         return gnorm
+
+    def _sharded_global_norm(self, local_grads: list[torch.Tensor]) -> torch.Tensor:
+        """‖g‖ over the full gradients from the local shards: the squares of
+        the leaves sharded over the same mesh dims are summed and all-reduced
+        over those dims, once per group of leaves."""
+        import torch.distributed as dist
+
+        mesh = self.params[0].device_mesh
+        groups: dict[tuple[int, ...], list[torch.Tensor]] = {}
+        for g, p in zip(local_grads, self.params):
+            dims = tuple(i for i, pl in enumerate(p.placements) if pl.is_shard())
+            groups.setdefault(dims, []).append(torch.linalg.vector_norm(g) ** 2)
+        total = []
+        for dims, squares in groups.items():
+            s = torch.stack(squares).sum()
+            for i in dims:
+                dist.all_reduce(s, group=mesh.get_group(i))
+            total.append(s)
+        return torch.sqrt(torch.stack(total).sum())
+
+    def distribute(self, params: list[nn.Parameter]) -> None:
+        """Move onto a mesh: ``params`` (DTensor parameters, in this
+        optimizer's order) replace the plain ones, and each moment becomes a
+        DTensor of its parameter's mesh and placements."""
+        self.mu = [distribute_tensor(m, q.device_mesh, q.placements) for m, q in zip(self.mu, params)]
+        self.nu = [distribute_tensor(v, q.device_mesh, q.placements) for v, q in zip(self.nu, params)]
+        self.params = params
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -147,11 +201,13 @@ def make_optimizer(cfg: GNNTrainConfig, params) -> ClippedAdamW:
 class TrainState:
     """The counterpart of flax's ``TrainState``: the step count, the model
     (holding the f32 parameters) and its optimizer. Steps update all three in
-    place."""
+    place. ``mesh`` is the ``DeviceMesh`` the parameters are placed on
+    (``shard_for_training``), or None on one device."""
 
     step: int
     model: TopoScorer
     optimizer: ClippedAdamW
+    mesh: Any = None
 
 
 def init_state(
@@ -192,14 +248,29 @@ def _check_pairs(pairs: PairBatch, n: int) -> None:
             raise ValueError(f"{name} node index out of range for {n}-node graph")
 
 
-def _place_batch(batch: PairBatch, g: TopoGraph, dev: torch.device) -> PairBatch:
-    """A batch as tensors on ``dev``: numpy batches are bounds-checked on the
-    host first; tensors are taken as checked (make_multi_step samples them
-    from a checked pool)."""
+def _as_batch(child, parent, feats, label) -> PairBatch:
+    return PairBatch(child.long(), parent.long(), feats.float(), label.float())
+
+
+def _place_batch(batch: PairBatch, g: TopoGraph, state: TrainState) -> PairBatch:
+    """A batch as tensors on the state's device, or on a mesh as DTensors
+    whose rows lie over "data" (this rank keeps the rows of its data
+    coordinate). Host batches are bounds-checked first; tensors are taken as
+    checked (make_multi_step samples them from a checked pool)."""
+    if isinstance(batch.child, DTensor):
+        return _as_batch(*batch)
     if not isinstance(batch.child, torch.Tensor):
         _check_pairs(batch, g.node_feats.shape[0])
-    child, parent, feats, label = (torch.as_tensor(a).to(dev) for a in batch)
-    return PairBatch(child.long(), parent.long(), feats.float(), label.float())
+    if state.mesh is None:
+        return _as_batch(*(torch.as_tensor(a).to(_device_of(state)) for a in batch))
+    lo, hi = dist_lib.local_row_slice(len(batch.child), state.mesh)
+    return _as_batch(*(_rows_to_mesh(torch.as_tensor(a)[lo:hi], len(a), state.mesh) for a in batch))
+
+
+def _rows_to_mesh(local: torch.Tensor, global_rows: int, mesh) -> DTensor:
+    """This rank's rows of a ``[global_rows, ...]`` tensor as the global
+    DTensor, rows over "data"."""
+    return dist_lib.process_local_batch(mesh, local, (global_rows, *local.shape[1:]))
 
 
 def make_train_step(remat: bool = False, *, with_metrics: bool = False) -> Callable:
@@ -209,14 +280,15 @@ def make_train_step(remat: bool = False, *, with_metrics: bool = False) -> Calla
     the backward recomputes the GNN forward instead of holding its [N, K, H]
     activations (``jax.checkpoint`` in the JAX package). ``with_metrics``
     widens the return to ``(state, (loss, grad_norm))`` with the pre-clip
-    global gradient norm. ``g`` lies on the state's device; ``batch`` is a
-    PairBatch of numpy arrays or of tensors. The loss and norm are device
-    scalars: nothing waits for the device.
+    global gradient norm. ``g`` lies on the state's device (on a mesh: as
+    ``shard_for_training`` placed it); ``batch`` is a PairBatch of numpy
+    arrays or of tensors (on a mesh: the global batch, or DTensors placed
+    already). The loss and norm are device scalars (this rank's, on a
+    mesh): nothing waits for the device.
     """
 
     def step(state: TrainState, g: TopoGraph, batch: PairBatch):
-        dev = _device_of(state)
-        batch = _place_batch(batch, g, dev)
+        batch = _place_batch(batch, g, state)
         model = state.model
         if remat:
             def apply(gg, c, p, f):
@@ -225,10 +297,14 @@ def make_train_step(remat: bool = False, *, with_metrics: bool = False) -> Calla
             apply = model
         state.optimizer.zero_grad()
         loss = loss_fn(apply, g, batch)
+        if state.mesh is not None:  # the mean over "data" rows comes back a partial sum
+            loss = loss.redistribute(state.mesh, meshlib.replicated(state.mesh))
         loss.backward()
         gnorm = state.optimizer.step(state.step)
         state.step += 1
         loss = loss.detach()
+        if state.mesh is not None:
+            loss = loss.to_local()
         return (state, (loss, gnorm)) if with_metrics else (state, loss)
 
     return step
@@ -254,6 +330,81 @@ def pad_graph(g: TopoGraph, n_padded: int) -> TopoGraph:
     )
 
 
+def _host_graph(g: TopoGraph) -> TopoGraph:
+    return TopoGraph(*(a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a) for a in g))
+
+
+def _place_sharded(state: TrainState, graph: TopoGraph, mesh) -> tuple[TrainState, TopoGraph]:
+    """Shared placement, the counterpart of the JAX ``_place_sharded``: every
+    parameter becomes a DTensor parameter of ``param_leaf_placements``
+    (broadcast from rank 0), Adam's moments follow their parameters, and the
+    graph, its node rows padded to a multiple of dp, is row-sharded over
+    "data": this rank holds only the rows of its data coordinate. The model
+    must lie on the mesh's device already (``init_state(device=...)``)."""
+    if state.mesh is not None:
+        raise ValueError("the state is placed on a mesh already")
+    placed: dict[int, nn.Parameter] = {}
+    for name, pl in meshlib.infer_param_placements(state.model, mesh).items():
+        owner, _, leaf = name.rpartition(".")
+        mod = state.model.get_submodule(owner)
+        p = getattr(mod, leaf)
+        placed[id(p)] = q = nn.Parameter(distribute_tensor(p.detach(), mesh, pl), requires_grad=p.requires_grad)
+        mod.register_parameter(leaf, q)
+    state.optimizer.distribute([placed[id(p)] for p in state.optimizer.params])
+    state.mesh = mesh
+    return state, _place_graph(graph, state)
+
+
+def _place_graph(graph: TopoGraph, state: TrainState) -> TopoGraph:
+    """The graph on the state's device, or row-sharded over its mesh's
+    "data" axis (padded to a multiple of dp first); a graph placed already
+    is returned as it is."""
+    if state.mesh is None:
+        return graph.to(_device_of(state))
+    if isinstance(graph.node_feats, DTensor):
+        return graph
+    dp, _ = meshlib.axis_sizes(state.mesh)
+    host = _host_graph(graph)
+    host = pad_graph(host, meshlib.pad_to_multiple(host.node_feats.shape[0], dp))
+    lo, hi = dist_lib.local_row_slice(host.node_feats.shape[0], state.mesh)
+    return TopoGraph(*(dist_lib.process_local_batch(state.mesh, a[lo:hi], a.shape) for a in host))
+
+
+def shard_for_training(
+    state: TrainState, graph: TopoGraph, mesh, *, remat: bool = False
+) -> tuple[TrainState, TopoGraph, Callable]:
+    """Place state and graph per the mesh rules and return the step: node
+    rows over "data" (N padded to dp), weights over "model", batch rows over
+    "data". The step takes a PairBatch of the global batch (host arrays, of
+    which each rank keeps its data rows) or of DTensors placed already."""
+    state, g = _place_sharded(state, graph, mesh)
+    return state, g, make_train_step(remat)
+
+
+def shard_for_training_scan(
+    state: TrainState,
+    graph: TopoGraph,
+    pairs: PairBatch,
+    mesh,
+    *,
+    batch_size: int = 4096,
+    steps_per_call: int = 10,
+    remat: bool = False,
+    with_metrics: bool = False,
+    seed: int = 0,
+) -> tuple[TrainState, TopoGraph, Callable]:
+    """Device-resident training on a mesh: ``_place_sharded``, then
+    ``make_multi_step`` with the batch rounded up to a multiple of dp.
+    Returns (state, g, multi_step)."""
+    dp, _ = meshlib.axis_sizes(mesh)
+    state, g = _place_sharded(state, graph, mesh)
+    multi = make_multi_step(
+        state, g, pairs, batch_size=meshlib.pad_to_multiple(batch_size, dp),
+        steps_per_call=steps_per_call, remat=remat, with_metrics=with_metrics, seed=seed,
+    )
+    return state, g, multi
+
+
 def make_multi_step(
     state: TrainState,
     graph: TopoGraph,
@@ -277,29 +428,48 @@ def make_multi_step(
     pulls a call's values once. The generator's numbers differ from
     ``jax.random``'s: the distribution of batches is the same, the batches
     are not.
+
+    On a mesh (a state from ``_place_sharded``) the graph is row-sharded
+    and the pool replicated: every rank seeds its generator alike, draws the
+    same global indices and keeps the rows of its data coordinate, as
+    ``make_scan_step`` constrains the sampled rows onto "data".
     """
     dev = _device_of(state)
     _check_pairs(pool, graph.node_feats.shape[0])
-    g = graph.to(dev)
-    child, parent, feats, label = (torch.as_tensor(a).to(dev) for a in pool)
-    pool_t = PairBatch(child.long(), parent.long(), feats.float(), label.float())
+    g = _place_graph(graph, state)
+    pool_t = _as_batch(*(torch.as_tensor(a).to(dev) for a in pool))
     n_pool = pool_t.child.shape[0]
     step = make_train_step(remat, with_metrics=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    lo, hi = (0, batch_size) if state.mesh is None else dist_lib.local_row_slice(batch_size, state.mesh)
 
     def multi_step(st: TrainState):
         losses = torch.empty(steps_per_call, dtype=torch.float32, device=dev)
         norms = torch.empty(steps_per_call, dtype=torch.float32, device=dev)
         for i in range(steps_per_call):
             idx = torch.randint(0, n_pool, (batch_size,), generator=gen, device=dev)
-            batch = PairBatch(*(a.index_select(0, idx) for a in pool_t))
+            if st.mesh is None:
+                batch = PairBatch(*(a.index_select(0, idx) for a in pool_t))
+            else:
+                batch = PairBatch(*(_rows_to_mesh(a.index_select(0, idx[lo:hi]), batch_size, st.mesh)
+                                    for a in pool_t))
             st, (loss, gnorm) = step(st, g, batch)
             losses[i] = loss
             norms[i] = gnorm
         return (st, (losses, norms)) if with_metrics else (st, losses)
 
     return multi_step
+
+
+def _train_device(device, mesh) -> torch.device | str | None:
+    """The device a training entry point initializes on: ``device``, or this rank's device
+    of ``mesh``; both at once is an error."""
+    if mesh is None:
+        return device
+    if device is not None:
+        raise ValueError("pass device= or mesh=, not both")
+    return meshlib.mesh_device(mesh)
 
 
 async def train_async(
@@ -314,6 +484,7 @@ async def train_async(
     log_every: int = 100,
     log: Callable[[str], None] = lambda s: None,
     telemetry=None,
+    mesh=None,
 ) -> tuple[TrainState, list[float]]:
     """Cooperative training driver for asyncio hosts (the trainer service).
 
@@ -325,16 +496,28 @@ async def train_async(
 
     telemetry: any object with ``on_step(loss, grad_norm, examples=...)``
     (the trainer service's ``TrainRunTelemetry``); it is fed once per step
-    after each call's pull, at no extra device sync. ``device`` stands where
-    the JAX driver takes ``mesh``; the mesh is still to come.
+    after each call's pull, at no extra device sync.
+
+    ``device`` (one device) and ``mesh`` (a ``DeviceMesh``, on which every
+    rank of the group calls this alike) are exclusive. On a mesh the state
+    goes through ``shard_for_training_scan``, the batch is rounded up to a
+    multiple of dp, and the returned state's parameters are DTensors.
     """
+    dev = _train_device(device, mesh)
     steps_per_call = max(1, min(steps_per_call, steps))
     calls = -(-steps // steps_per_call)
+    batch_size = cfg.batch_size if mesh is None else meshlib.pad_to_multiple(cfg.batch_size, meshlib.axis_sizes(mesh)[0])
 
     def _setup():
-        state = init_state(cfg, graph, seed, device=device)
+        state = init_state(cfg, graph, seed, device=dev)
+        if mesh is not None:
+            state, _, multi = shard_for_training_scan(
+                state, graph, pairs, mesh, batch_size=batch_size, steps_per_call=steps_per_call,
+                remat=cfg.remat, with_metrics=True, seed=seed,
+            )
+            return state, multi
         multi = make_multi_step(
-            state, graph, pairs, batch_size=cfg.batch_size, steps_per_call=steps_per_call,
+            state, graph, pairs, batch_size=batch_size, steps_per_call=steps_per_call,
             remat=cfg.remat, with_metrics=True, seed=seed,
         )
         return state, multi
@@ -352,7 +535,7 @@ async def train_async(
         state, ls, gn = await asyncio.to_thread(_one_call, state)
         if telemetry is not None:
             for lv, gv in zip(ls, gn):
-                telemetry.on_step(float(lv), float(gv), examples=cfg.batch_size)
+                telemetry.on_step(float(lv), float(gv), examples=batch_size)
         losses.extend(float(x) for x in ls)
         done = len(losses)
         if done % log_every < steps_per_call or i == calls - 1:
@@ -373,24 +556,31 @@ def train(
     seed: int = 0,
     log_every: int = 100,
     log: Callable[[str], None] = lambda s: None,
+    mesh=None,
 ) -> tuple[TrainState, list[float]]:
     """Full training driver; returns final state + loss history.
 
     Batches are drawn on the host with ``sample_batch`` and
     ``np.random.default_rng(seed)``, as the JAX driver draws them, so both
     see the same batches; the loss is read back only when it is logged.
-    ``device`` stands where the JAX driver takes ``mesh``; the mesh is still
-    to come.
+    ``device`` and ``mesh`` are exclusive, as in ``train_async``: on a mesh
+    every rank draws the same global batch, rounded up to a multiple of dp,
+    and keeps the rows of its data coordinate.
     """
-    state = init_state(cfg, graph, seed, device=device)
+    state = init_state(cfg, graph, seed, device=_train_device(device, mesh))
     dev = _device_of(state)
-    g = graph.to(dev)
-    step_fn = make_train_step(cfg.remat)
+    batch_size = cfg.batch_size
+    if mesh is None:
+        g = graph.to(dev)
+        step_fn = make_train_step(cfg.remat)
+    else:
+        state, g, step_fn = shard_for_training(state, graph, mesh, remat=cfg.remat)
+        batch_size = meshlib.pad_to_multiple(batch_size, meshlib.axis_sizes(mesh)[0])
     rng = np.random.default_rng(seed)
     losses: list[float] = []
     t0 = time.perf_counter()
     for i in range(steps):
-        batch = sample_batch(pairs, cfg.batch_size, rng)
+        batch = sample_batch(pairs, batch_size, rng)
         state, loss = step_fn(state, g, batch)
         if (i + 1) % log_every == 0 or i == 0:
             lv = float(loss)

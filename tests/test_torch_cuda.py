@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, serving, training and the trainer service on a card, against their plain versions.
+"""The port's CUDA kernels, serving, training, the trainer service, staging and an NCCL world of one on a card.
 
 Every test here is marked ``cuda`` and decides inside its fixture whether a
 card is present, skipping with a reason on a host without one. The file
@@ -9,6 +9,7 @@ a card and no JAX (the JAX test bootstrap in conftest.py is left out):
 """
 
 import asyncio
+import json
 import pathlib
 
 import numpy as np
@@ -17,6 +18,9 @@ import torch
 
 from dragonfly2_tpu_torch.models import GNNScorer, TopoScorer, init_flax_like, params_from_flax
 from dragonfly2_tpu_torch.ops import neighbor_agg, neighbor_agg_cuda
+from dragonfly2_tpu_torch.parallel import distributed as dist_lib
+from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
+from dragonfly2_tpu_torch.tpuvm import staging
 from dragonfly2_tpu_torch.trainer import artifacts, dataset, synthetic, train_gnn, train_mlp
 from dragonfly2_tpu_torch.trainer.service import TrainerConfig, TrainerService, pack_records
 
@@ -299,3 +303,26 @@ def test_trainer_service_on_card_gives_verified_artifacts(card, tmp_path):
     x = torch.from_numpy(want.pairs.feats[:1000])
     with torch.inference_mode():
         assert np.abs(model.to(card)(x.to(card)).cpu().numpy() - model.cpu()(x).numpy()).max() <= 5e-3
+
+
+def test_staging_to_the_card_is_bit_equal_through_pinned_memory(card, tmp_path):
+    rng = np.random.default_rng(8)
+    src = {"w": (rng.standard_normal((512, 256), dtype=np.float32).view(np.uint32) >> 16).astype(np.uint16),
+           "b": rng.standard_normal(256).astype(np.float32)}
+    path = stlib.write_safetensors(tmp_path / "c.safetensors", src, bf16_names=["w"])
+    out = staging.stage_tensors(path)  # the card by default
+    assert out["w"].device.type == "cuda" and out["w"].dtype == torch.bfloat16
+    assert out["w"].view(torch.int16).cpu().numpy().tobytes() == src["w"].tobytes()
+    assert out["b"].cpu().numpy().tobytes() == src["b"].tobytes()
+
+
+def test_world_of_one_under_nccl_in_a_subprocess(card):
+    """mp_train joins an NCCL group from DF_DIST_* alone, on the card."""
+    (done,) = dist_lib.launch_localhost(1, "dragonfly2_tpu_torch.parallel.mp_train", local_devices=0,
+                                        extra_env={"DF_MP_STEPS": "10"}, timeout=300)
+    lines = done.stdout.splitlines()
+    ok = next(line for line in lines if line.startswith("mp_train ok"))
+    assert "procs=1 devices=1" in ok and "mesh={'data': 1, 'model': 1}" in ok and "device=cuda" in ok
+    losses = json.loads(next(line for line in lines if line.startswith("MP_LOSSES "))[len("MP_LOSSES "):])
+    assert len(losses) == 10 and all(np.isfinite(v) for v in losses)
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]) * 0.5, losses
