@@ -8,7 +8,8 @@ Phases, each of which must hold or the run exits non-zero at once:
 1. device    the card's name and count, nvidia-smi's name and power limit;
              TF32 off for matmuls and cuDNN.
 2. build     every kernel source under dragonfly2_tpu_torch/csrc/ compiled with
-             nvcc for sm_90a, one nvcc per source, all started together.
+             nvcc for sm_90a, one nvcc per source, all started together, and
+             beside them csrc/scorer.cc (the native scorer) with g++.
 3. serving   the first main path at full width: a 16384-host cluster (K=16)
              and a TopoScorer with hidden 256, embed 128, 3 SAGE layers, head
              256, random weights from a seed at flax's init scale. GNNScorer
@@ -59,7 +60,22 @@ Phases, each of which must hold or the run exits non-zero at once:
              param_leaf_placements on the mesh, each bit-equal to its source.
              Steps/s of both runs, peak memory and staging GB/s. One card is a
              world of one: NCCL puts no two ranks on one device.
-8. kernels   each kernel against its plain PyTorch version on the card, at the
+8. wiring    the port's control loop, at the ingest phase's records and widths:
+             the records written into a port TelemetryStorage; the port's
+             trainer server started in-process on a free localhost port,
+             training on the card, publishing to a manager stub (a port
+             RpcServer that records publish_model rows); the port's
+             TrainerAnnouncer.upload_once sends the records over TCP in
+             CHUNK_ROWS chunks; both rows must be published within 120 s.
+             The GNN row's artifact is loaded by load_scorer_verified: the
+             native C++ scorer (host CPU) must come back, and with
+             DRAGONFLY_NATIVE_SCORER=0 GNNScorer on the card. The same 256
+             concurrent 40-candidate rounds go through MicroBatchScorer from
+             both, agreeing within 5e-3; a corrupt copy of the artifact must
+             be refused as digest_mismatch. Upload seconds and rows/s, close
+             to published, load + verify, per-round p50/p99 of each scorer.
+             Cut as the ingest phase is, in GNN steps only.
+9. kernels   each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
@@ -80,7 +96,10 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import pathlib
+import platform
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -104,9 +123,14 @@ from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.models.weights import full_state_dict
 from dragonfly2_tpu_torch.parallel import distributed as dist_lib
 from dragonfly2_tpu_torch.parallel import mesh as meshlib
+from dragonfly2_tpu_torch.rpc.core import RpcServer
+from dragonfly2_tpu_torch.scheduler import manager_link
+from dragonfly2_tpu_torch.scheduler.announcer import CHUNK_ROWS, TrainerAnnouncer
+from dragonfly2_tpu_torch.telemetry import TelemetryStorage
 from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
 from dragonfly2_tpu_torch.tpuvm import staging
 from dragonfly2_tpu_torch.trainer import artifacts, dataset, train_gnn, train_mlp
+from dragonfly2_tpu_torch.trainer.server import start_trainer, stop_trainer
 from dragonfly2_tpu_torch.trainer.service import TrainerConfig, TrainerService, pack_records
 from dragonfly2_tpu_torch.trainer.synthetic import make_cluster, sample_batch, synth_telemetry_records
 
@@ -127,6 +151,10 @@ RELOAD_SCORE_MAX_ABS = 1e-6
 INGEST_ROWS, INGEST_HOSTS, INGEST_SEED, INGEST_CHUNK = 500_000, 16384, 7, 65536
 INGEST_GNN_STEPS = 100  # the one cut: TrainerConfig's default is 300
 MLP_CPU_STEPS, MLP_EVAL_MAX_ABS = 3, 5e-3
+# the wiring phase: the ingest phase's records and widths, uploaded over TCP;
+# the published rows must come within the deadline, and the native and torch
+# scorers of the one artifact must agree on every round within the bound
+WIRING_DEADLINE_S, WIRING_ROUND_SEED = 120.0, 21
 # the sharded phase: the training phase's shape on a (1, 1) mesh, held to the
 # card-vs-CPU bounds and to tight ones: on a world of one the collectives are
 # identities, so the mesh run differs from one device only by the order of
@@ -708,6 +736,152 @@ def sharded(cluster) -> dict:
     return numbers
 
 
+def host_cpu() -> str:
+    """The host CPU's model and core count (the native scorer's device):
+    /proc/cpuinfo's model name, else its vendor, family and model numbers
+    (a sandboxed kernel may report the name as "unknown")."""
+    fields: dict[str, str] = {}
+    try:
+        for ln in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+            key, sep, value = ln.partition(":")
+            if sep:
+                fields.setdefault(key.strip(), value.strip())
+    except OSError as e:
+        print(f"  /proc/cpuinfo unreadable: {e}")
+    name = fields.get("model name", "")
+    if name in ("", "unknown"):
+        name = " ".join(f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model") if k in fields)
+    return f"{name or platform.machine()}, {os.cpu_count()} cores"
+
+
+def timed_load(path: str, digest: str, native: bool) -> tuple:
+    """load_scorer_verified with DRAGONFLY_NATIVE_SCORER on or off: (scorer,
+    host index, seconds)."""
+    old = os.environ.get("DRAGONFLY_NATIVE_SCORER")
+    os.environ["DRAGONFLY_NATIVE_SCORER"] = "1" if native else "0"
+    try:
+        t0 = time.perf_counter()
+        scorer, hosts = manager_link.load_scorer_verified(path, digest)
+        return scorer, hosts, time.perf_counter() - t0
+    finally:
+        if old is None:
+            del os.environ["DRAGONFLY_NATIVE_SCORER"]
+        else:
+            os.environ["DRAGONFLY_NATIVE_SCORER"] = old
+
+
+async def wiring_loop(tmp: pathlib.Path, downloads: np.ndarray, probes: np.ndarray) -> dict:
+    """Records in a port TelemetryStorage → the port's announcer → the port's
+    trainer server on the card (TCP) → both models published to a manager
+    stub; returns the published rows and the host seconds of each step."""
+    published: dict[str, dict] = {}
+    both_at = []
+
+    async def publish_model(p: dict) -> dict:
+        published[p["type"]] = p
+        if {"mlp", "gnn"} <= published.keys() and not both_at:
+            both_at.append(time.perf_counter())
+        return {"id": len(published), "state": "active", **p}
+
+    stub = RpcServer()
+    stub.register("publish_model", publish_model)
+    await stub.start()
+    cfg = TrainerConfig(model_dir=str(tmp / "models"), gnn_steps=INGEST_GNN_STEPS, gnn_steps_per_call=10)
+    server, service = await start_trainer(cfg, port=0, manager_addr=stub.address)
+    store = TelemetryStorage(tmp / "telemetry")
+    ann = TrainerAnnouncer(store, server.address, hostname="chip-smoke", scheduler_id=0)
+    try:
+        t0 = time.perf_counter()
+        store.downloads.extend(downloads)
+        store.probes.extend(probes)
+        store.flush()
+        store_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        up = await ann.upload_once()
+        closed = time.perf_counter()
+        upload_s = closed - t0
+        # the run publishes both rows before it ends; _train turns a fault
+        # inside it into last_result = {"error": ...}, so name it
+        await asyncio.wait_for(service.wait_idle(), WIRING_DEADLINE_S)
+        if not both_at:
+            raise AssertionError(f"the run published {sorted(published)}, not both models: {service.last_result}")
+        close_to_rows_s = both_at[0] - closed
+        if up["downloads"] != len(downloads) or up["probes"] != len(probes):
+            raise AssertionError(f"the announcer uploaded {up}, not all {len(downloads)} + {len(probes)} records")
+        if len(store.downloads) or len(store.probes):
+            raise AssertionError("the uploaded telemetry was not discarded")
+    finally:
+        await ann.stop()
+        await stop_trainer(server, service)
+        await stub.stop()
+    return {"rows": published, "store_s": store_s, "upload_s": upload_s, "close_to_rows_s": close_to_rows_s,
+            "uploaded": up}
+
+
+def wiring() -> dict:
+    """The control loop of the port on the card, at the ingest phase's widths:
+    upload over TCP, train, publish, load the published artifact through the
+    model loader (native C++ first, torch on the card as the fallback), and
+    serve the same rounds from both; then a corrupt copy must be refused."""
+    t_phase = time.perf_counter()
+    downloads, probes = synth_telemetry_records(INGEST_ROWS, INGEST_ROWS, INGEST_HOSTS, seed=INGEST_SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        loop = asyncio.run(wiring_loop(tmp, downloads, probes))
+        row = loop["rows"]["gnn"]
+        path, digest = row["artifact_path"], row["artifact_digest"]
+        native, hosts, native_load_s = timed_load(path, digest, native=True)
+        if native.engine != "native":
+            raise AssertionError(f"the loader served engine {native.engine!r}, not the native scorer")
+        torch_scorer, torch_hosts, torch_load_s = timed_load(path, digest, native=False)
+        if torch_scorer.engine != "torch" or torch_scorer.device.type != "cuda":
+            raise AssertionError(f"the fallback served {torch_scorer.engine!r} on {torch_scorer.device}")
+        if hosts != torch_hosts or len(hosts) != native.num_nodes:
+            raise AssertionError("the two loads disagree on the host index")
+        rng = np.random.default_rng(WIRING_ROUND_SEED)
+        n = native.num_nodes
+        child = rng.integers(0, n, (ROUNDS, CANDIDATES), dtype=np.int32)
+        parent = rng.integers(0, n, (ROUNDS, CANDIDATES), dtype=np.int32)
+        feats = downloads["pair_features"][rng.integers(0, len(downloads), (ROUNDS, CANDIDATES))]
+        _, native_scores, native_ms = drive_rounds(native, feats, child, parent)
+        drive_rounds(torch_scorer, feats, child, parent)  # the first flushes on the card warm it up
+        _, torch_scores, torch_ms = drive_rounds(torch_scorer, feats, child, parent)
+        gap = float(np.abs(native_scores - torch_scores).max())
+        if gap > SCORE_MAX_ABS:
+            raise AssertionError(f"native and torch scores of one artifact differ by {gap} > {SCORE_MAX_ABS}")
+        bad = shutil.copytree(path, tmp / "corrupt")
+        (bad / "params.msgpack").write_bytes(b"CORRUPTED" + (bad / "params.msgpack").read_bytes()[9:])
+        try:
+            manager_link.load_scorer_verified(str(bad), digest)
+            raise AssertionError("a corrupt artifact loaded")
+        except Exception as e:
+            kind = manager_link.classify_swap_error(e)
+            if kind != "digest_mismatch":
+                raise AssertionError(f"a corrupt artifact was classified {kind!r}: {e}") from e
+        native.close()
+    n_rows = len(downloads) + len(probes)
+    numbers = {
+        "downloads": len(downloads), "probes": len(probes), "hosts": INGEST_HOSTS, "chunk_rows": CHUNK_ROWS,
+        "store_s": loop["store_s"], "upload_s": loop["upload_s"], "upload_rows_per_s": n_rows / loop["upload_s"],
+        "close_to_published_s": loop["close_to_rows_s"],
+        "native_load_verify_s": native_load_s, "torch_load_verify_s": torch_load_s,
+        "native_round_p50_ms": float(np.percentile(native_ms, 50)),
+        "native_round_p99_ms": float(np.percentile(native_ms, 99)),
+        "torch_round_p50_ms": float(np.percentile(torch_ms, 50)),
+        "torch_round_p99_ms": float(np.percentile(torch_ms, 99)),
+        "score_max_abs": gap, "host_cpu": host_cpu(), "swap_error_of_corrupt_copy": kind,
+        "gnn_evaluation": row["evaluation"], "wall_s": time.perf_counter() - t_phase,
+    }
+    print(f"  upload of {n_rows} records over TCP in {loop['upload_s']:.2f} s "
+          f"({numbers['upload_rows_per_s']:.0f} rows/s; store written in {loop['store_s']:.2f} s); close to both "
+          f"rows published {loop['close_to_rows_s']:.2f} s; load + verify native {native_load_s:.3f} s, torch "
+          f"{torch_load_s:.3f} s; {ROUNDS} rounds of {CANDIDATES}: native p50/p99 "
+          f"{numbers['native_round_p50_ms']:.2f}/{numbers['native_round_p99_ms']:.2f} ms ({numbers['host_cpu']}), "
+          f"torch on the card {numbers['torch_round_p50_ms']:.2f}/{numbers['torch_round_p99_ms']:.2f} ms; "
+          f"largest score gap {gap:.3g}; corrupt copy: {kind}; phase {numbers['wall_s']:.1f} s")
+    return numbers
+
+
 def edge_case_inputs() -> dict:
     """Named (h, neighbors, mask) CPU inputs that each kernel must get right."""
     rng = np.random.default_rng(0)
@@ -955,9 +1129,14 @@ def main() -> int:
     with phase("build"):
         t0 = time.perf_counter()
         names = _build.sources()
-        with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=len(names) + 1) as pool:
+            scorer_lib = pool.submit(_build.build_gxx, "scorer")
             built = dict(zip(names, pool.map(_build.build, names)))
+            scorer_lib = scorer_lib.result()
         print(f"  {len(built)} kernel source(s) built in {time.perf_counter() - t0:.1f} s")
+        print(f"  scorer.cc (the native scorer, host CPU): " + (
+            f"g++ {scorer_lib['seconds']:.1f} s" if scorer_lib["seconds"] else "built already")
+            + f", flags {scorer_lib['flags']}")
         for name, info in built.items():
             print(f"  {name}: " + (f"nvcc {info['seconds']:.1f} s; registers from this run's nvcc"
                                    if info["seconds"] else "built already; registers from an earlier build's log"))
@@ -1015,6 +1194,16 @@ def main() -> int:
         if any(seen.values()):
             raise AssertionError(f"the sharded path launched a kernel it does not call: {seen}")
         print(json.dumps({"sharded": numbers, "card": card}))
+
+    with phase("wiring"):
+        zero_counts()
+        numbers = wiring()
+        # no kernel is on this path: the trainer runs SAGELayer's plain ops,
+        # and serving runs the C++ scorer or GNNScorer's plain ops
+        numbers["kernel_launches"] = seen = counts()
+        if any(seen.values()):
+            raise AssertionError(f"the wiring path launched a kernel it does not call: {seen}")
+        print(json.dumps({"wiring": numbers, "card": card}))
 
     with phase("kernels"):
         g = cluster.graph.to("cuda")

@@ -8,21 +8,27 @@ each module has an obvious counterpart, and imports nothing of it.
 Layout:
   models/         feature schema, GraphSAGE TopoScorer, BandwidthMLP, flax
                   weight carry-over, the cached-embedding GNNScorer
-  ops/            neighbour gather / masked mean, and the hand-written CUDA
-                  neighbour-aggregation kernel (csrc/neighbor_agg.cu)
+  ops/            neighbour gather / masked mean, the hand-written CUDA
+                  neighbour-aggregation kernel (csrc/neighbor_agg.cu), and
+                  the nvcc and g++ builds of csrc/
   trainer/        synthetic cluster and telemetry generators, the
                   telemetry-to-dataset ingest, MLP and GNN training (on one
-                  device or sharded over a mesh), the trainer service,
-                  artifacts
+                  device or sharded over a mesh), the trainer service and
+                  its RPC server, artifacts
   parallel/       the ("data", "model") DeviceMesh and its placement rules,
                   process-group set-up (gloo on the CPU, NCCL on the card),
                   the localhost launcher and one multi-process training job
   tpuvm/          safetensors reader/writer and checkpoint staging onto the
                   card or a mesh
-  telemetry/      the download and probe record schemas
+  telemetry/      the download and probe record schemas and their stores
   observability/  metric registry, span tracer, feature sketch
-  utils/          the injectable clock
-  native/         the micro-batching request front, the scorer.dfsc writer
+  utils/          the injectable clock, the entry points' signal wait
+  native/         the micro-batching request front, the native C++ scorer
+                  (csrc/scorer.cc) and its scorer.dfsc writer
+  rpc/            the JAX package's wire protocol, the trainer's RPC
+                  adapters, the manager client's trainer-side subset
+  scheduler/      the model loader a scheduler attaches artifacts through,
+                  the announcer that uploads telemetry to the trainer
 
 Entry points run on the card unless the caller asks for the CPU.
 """

@@ -16,6 +16,7 @@ models/weights.py maps one onto the other by name alone.
 
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from dragonfly2_tpu_torch.models.features import EDGE_FEATURE_DIM, FEATURE_DIM, NODE_FEATURE_DIM
 from dragonfly2_tpu_torch.ops.neighbor_agg import masked_mean, neighbor_gather
@@ -47,14 +49,98 @@ class TopoGraph(NamedTuple):
         return TopoGraph(*(torch.as_tensor(a).to(device) for a in self))
 
 
+def _constants(dtype: torch.dtype) -> tuple[float, float]:
+    """sqrt(2/pi) and 0.044715 rounded to ``dtype``, as jax.nn.gelu casts them."""
+    return tuple(float(torch.tensor(c, dtype=dtype)) for c in (math.sqrt(2 / math.pi), 0.044715))
+
+
+def _gelu_tanh(x: torch.Tensor, c: float, k: float) -> torch.Tensor:
+    """tanh(c * (x + k * x**3)), each op rounded to x's dtype, in one buffer."""
+    return (x**3).mul_(k).add_(x).mul_(c).tanh_()
+
+
+class _Gelu(torch.autograd.Function):
+    """jax.nn.gelu(approximate=True) op for op, in x's dtype:
+    ``x * (0.5 * (1 + tanh(c * (x + k * x**3))))`` with every op rounded to
+    that dtype, and a backward that is JAX's own VJP of it, op for op (its
+    jaxpr: ``p = 0.5·x·g·(1 - t)``, ``s = c·(p + p·t)``, ``dx = (g·cdf + s)
+    + k·s·3x²``). In bf16, tanh rounds to -1 for x <= -3.06, so the value
+    and the gradient are exactly 0 there, as in JAX; torch's fused
+    ``F.gelu`` works in f32 inside and leaves about 1e-7 of the gradient
+    down to -5.03, which Adam turns into full steps on a saturated unit.
+    Only x is kept for the backward, which recomputes the rest; the ops run
+    in place where an operand is not needed again (the same roundings,
+    fewer temporaries)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        c, k = _constants(x.dtype)
+        return _gelu_tanh(x, c, k).add_(1.0).mul_(0.5).mul_(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        c, k = _constants(x.dtype)
+        # in place only into buffers that came from g: on a mesh g may hold
+        # partial sums, which a buffer from x cannot take in place
+        t = _gelu_tanh(x, c, k)
+        p = (x * g).mul_(0.5).mul_(torch.sub(1.0, t))  # 0.5·x·g·(1 - t)
+        s = (p * t).add_(p).mul_(c)  # c·(p + p·t)
+        del p
+        dx = (g * t.add_(1.0).mul_(0.5)).add_(s)  # g·cdf + s
+        return dx.add_(s.mul_(k).mul_((x * x).mul_(3.0)))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.gelu``: the tanh approximation, in x's dtype."""
-    return F.gelu(x, approximate="tanh")
+    """flax ``nn.gelu``: the tanh approximation, in x's dtype, with JAX's
+    roundings and JAX's gradient (``_Gelu``)."""
+    return _Gelu.apply(x)
+
+
+class GELU(nn.Module):
+    """``gelu`` as a module, for the head's ``nn.Sequential``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu(x)
+
+
+def _spread(x: torch.Tensor) -> bool:
+    """x is a DTensor on a mesh of more than one device."""
+    return isinstance(x, DTensor) and x.device_mesh.size() > 1
+
+
+class _SumPartials(torch.autograd.Function):
+    """Identity on a DTensor; its gradient's partial sums (``Partial``
+    placements) are summed here, in the gradient's dtype, into the input's
+    own placements, before the casts behind it in the backward round them."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+        ctx.placements = t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        if any(p.is_partial() for p in g.placements):
+            g = g.redistribute(placements=ctx.placements)
+        return g
 
 
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=bf16, param_dtype=f32)``: bf16 product, then a
-    bf16 bias add. ``weight`` is [out, in], the transpose of flax's kernel."""
+    bf16 bias add. ``weight`` is [out, in], the transpose of flax's kernel.
+
+    On a mesh of more than one device DTensor takes a sum over a sharded
+    dim (the product's contraction over "model" shards; a weight or bias
+    gradient over "data" rows) as one partial sum per shard, in the
+    operand's dtype: in bf16 each partial rounds before their sum does,
+    where one device rounds the whole sum once (the mesh's gradient norm
+    parted from one process by 8e-3 at a (1, 4) mesh, JAX's by 2e-4). There
+    the product runs in f32 on the bf16-rounded operands, every partial sum
+    is taken in f32, and each result rounds to bf16 once, where one
+    device's does: the product, the bias add, each gradient.
+    """
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.bfloat16):
@@ -63,8 +149,16 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = F.linear(x.to(dt), self.weight.to(dt))
-        return y if self.bias is None else y + self.bias.to(dt)
+        if not _spread(x):
+            y = F.linear(x.to(dt), self.weight.to(dt))
+            return y if self.bias is None else y + self.bias.to(dt)
+        y = F.linear(x.to(dt).float(), _SumPartials.apply(self.weight.to(dt).float()))
+        if any(p.is_partial() for p in y.placements):
+            y = y.redistribute(placements=[Replicate() if p.is_partial() else p for p in y.placements])
+        y = y.to(dt)
+        if self.bias is None:
+            return y
+        return (y.float() + _SumPartials.apply(self.bias.to(dt).float())).to(dt)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -103,7 +197,12 @@ class SAGELayer(nn.Module):
         u = self.msg_nbr(h)
         s = self.msg_self(h)
         v = self.msg_edge(g.edge_feats.to(self.dtype))
-        msg = gelu(neighbor_gather(u, g.neighbors) + s[:, None, :] + v)  # [N, K, F]
+        # gathered in f32 (exact) and rounded back: the gather's backward then
+        # sums each row's gradient over its neighbour slots in f32, where a
+        # bf16 index_add would round at every add, and on a mesh in another
+        # order across "data" shards than on one device
+        nbr = neighbor_gather(u.float(), g.neighbors).to(self.dtype)
+        msg = gelu(nbr + s[:, None, :] + v)  # [N, K, F]
         agg = masked_mean(msg, g.mask.to(self.dtype))  # [N, F]
         out = gelu(self.Dense_0(h) + agg)
         return self.LayerNorm_0(out)
@@ -150,9 +249,9 @@ class TopoScorer(nn.Module):
         self.encoder = GraphSAGE(hidden, embed_dim, num_layers, node_dim, edge_dim, dtype)
         self.head = nn.Sequential(OrderedDict([
             ("layers_0", Dense(3 * embed_dim + pair_dim, head_hidden, dtype=dtype)),
-            ("layers_1", nn.GELU(approximate="tanh")),
+            ("layers_1", GELU()),
             ("layers_2", Dense(head_hidden, head_hidden // 2, dtype=dtype)),
-            ("layers_3", nn.GELU(approximate="tanh")),
+            ("layers_3", GELU()),
             ("layers_4", Dense(head_hidden // 2, 1, dtype=dtype)),
         ]))
 

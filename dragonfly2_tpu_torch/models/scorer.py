@@ -47,7 +47,14 @@ class GNNScorer:
     round pays for the trip to the card is for measurement to decide.
     """
 
-    engine = "torch"  # serving-mode label (native C++ scorer: "native", JAX: "jax")
+    # The serving-mode label a scheduler reads. The JAX package's evaluator
+    # knows "native", "jax" and "base" only, so a scheduler serving this
+    # scorer sets all three of its ML_SERVING_MODE gauges to 0: an honest
+    # gap of that evaluator, not a label to dress up as "jax". A scheduler
+    # attaching through scheduler.manager_link serves the native C++ scorer
+    # ("native") whenever the artifact has a scorer.dfsc; this engine is
+    # its fallback.
+    engine = "torch"
 
     def __init__(self, model: TopoScorer, state_dict: Mapping[str, torch.Tensor],
                  device: str | torch.device | None = None):

@@ -1,7 +1,13 @@
 """Serving front of the port: the micro-batching request front, and the
-writer of the native C++ scorer's artifact."""
+native C++ scorer (its ``scorer.dfsc`` writer, its ctypes binding, the
+mirrored peer table's binding and the per-thread handle pool)."""
 
 from dragonfly2_tpu_torch.native.microbatch import MicroBatchScorer
-from dragonfly2_tpu_torch.native.scorer import export_scorer_artifact
+from dragonfly2_tpu_torch.native.scorer import (
+    NativeMirror,
+    NativeScorer,
+    ScorerHandlePool,
+    export_scorer_artifact,
+)
 
-__all__ = ["MicroBatchScorer", "export_scorer_artifact"]
+__all__ = ["MicroBatchScorer", "NativeMirror", "NativeScorer", "ScorerHandlePool", "export_scorer_artifact"]

@@ -33,7 +33,7 @@ class MicroBatchScorer:
     """
 
     def __init__(self, scorer, *, max_rounds_per_flush: int = 64):
-        self._scorer = scorer  # anything with score_rounds (the port's GNNScorer)
+        self._scorer = scorer  # anything with score_rounds (GNNScorer, NativeScorer)
         self._max_rounds = max_rounds_per_flush
         self._pending: list[tuple[np.ndarray, np.ndarray, np.ndarray, asyncio.Future]] = []
         self._flusher: Optional[asyncio.Task] = None

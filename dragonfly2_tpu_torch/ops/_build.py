@@ -1,11 +1,15 @@
-"""Build the port's CUDA sources with nvcc and load them through ctypes.
+"""Build the port's native sources and load them through ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``_build/lib<name>-<hash>.so`` inside the package (git-ignored). The
-hash covers the source, the shared headers and the flags, so an edited
-source builds afresh and an unchanged one is reused. Nothing compiles at
-import: the package must import on a host with no nvcc and no card, and a
-kernel's wrapper loads its library on its first launch.
+with nvcc into ``_build/lib<name>-<hash>.so`` inside the package
+(git-ignored). Each ``csrc/<name>.cc`` (the host-side C++ scorer) compiles
+with g++ the same way (``build_gxx``/``load_gxx``). The hash covers the
+source, the shared headers and the flags (for g++ also the host CPU that
+``-march=native`` targets), so an edited source builds afresh and an
+unchanged one is reused. A build writes a pid-named temporary file and
+renames it into place, so processes building the same library at once
+cannot tear it. Nothing compiles at import: the package must import on a
+host with no nvcc and no card, and a library is built on its first use.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -29,6 +34,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel
 )
+
+# g++ flags of the host-side scorer, as the JAX package builds its copy
+# (dragonfly2_tpu/native/scorer.py): then the best of the steps below that
+# the compiler accepts, native SIMD with OpenMP down to neither
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffast-math", "-funroll-loops")
+GXX_STEPS = (("-march=native", "-fopenmp"), ("-march=native",), ())
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -51,6 +62,17 @@ def find_nvcc() -> str:
 def sources() -> list[str]:
     """Names of every kernel source under csrc/."""
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def _host_cpu() -> bytes:
+    """What ``-march=native`` targets: the CPU's model name and flags (a
+    library built on one host must not load on another)."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return platform.machine().encode()
+    keep = [ln for ln in lines if ln.startswith(("model name", "flags"))][:2]
+    return "\n".join([platform.machine(), *keep]).encode()
 
 
 def library_path(name: str) -> Path:
@@ -93,6 +115,50 @@ def build(name: str) -> dict:
     return {"path": out, "seconds": seconds, "log": proc.stdout}
 
 
+def gxx_library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cc`` builds to, keyed on source, flags and host CPU."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cc").read_bytes())
+    digest.update(repr((GXX_FLAGS, GXX_STEPS)).encode())
+    digest.update(_host_cpu())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_gxx(name: str) -> dict:
+    """Compile ``csrc/<name>.cc`` with g++ unless it is built already.
+
+    Tries ``GXX_FLAGS`` with each of ``GXX_STEPS`` in turn and keeps the
+    first that compiles. Returns the library path, the seconds the build
+    took (0.0 when it was already built) and the flags used (read back from
+    the log kept beside the library). Raises RuntimeError with the last
+    compiler output if every step fails.
+    """
+    out = gxx_library_path(name)
+    log = out.with_suffix(".log")
+    if out.exists():
+        return {"path": out, "seconds": 0.0, "flags": log.read_text() if log.exists() else ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    src = str(CSRC_DIR / f"{name}.cc")
+    t0 = time.perf_counter()
+    err = ""
+    for extra in GXX_STEPS:
+        flags = [*GXX_FLAGS, *extra]
+        proc = subprocess.run(["g++", *flags, "-o", str(tmp), src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode == 0:
+            break
+        err = proc.stdout
+    else:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on csrc/{name}.cc:\n{err}")
+    seconds = time.perf_counter() - t0
+    tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(" ".join(flags))
+    os.replace(tmp_log, log)
+    os.replace(tmp, out)
+    return {"path": out, "seconds": seconds, "flags": " ".join(flags)}
+
+
 def ptxas_usage(log: str) -> dict[str, dict[str, int]]:
     """Registers and spill bytes of each kernel in a build's ``-Xptxas -v``
     output, by mangled name."""
@@ -115,4 +181,15 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build(name)["path"]))
             _libs[name] = lib
+        return lib
+
+
+def load_gxx(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cc``, built with g++ on first use."""
+    key = f"{name}.cc"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_gxx(name)["path"]))
+            _libs[key] = lib
         return lib

@@ -1,0 +1,253 @@
+"""Framed msgpack RPC core, the wire of dragonfly2_tpu/rpc/core.py.
+
+Wire format: 4-byte big-endian length + msgpack map
+  request:  {"i": id, "m": method, "p": payload, "t"?: traceparent}
+  response: {"i": id, "r": result} | {"i": id, "e": {"code", "message"}}
+Payloads are msgpack-native types (dicts/lists/str/bytes/numbers/None),
+encoded by the port's own codec (``trainer/_msgpack.packb``/``unpackb``,
+byte-equal to ``msgpack.packb(use_bin_type=True)``), so either package's
+client talks to the other's server. The server accepts a request's ``"t"``
+(a caller's trace context) and ignores it.
+
+Server: asyncio TCP server, a method registry, the JAX package's error
+mapping (an unknown method is ``unimplemented``; an ``RpcError`` keeps its
+code; any other exception is ``internal`` with its type and message).
+Client: one TCP connection, requests multiplexed on it by id, a per-call
+timeout (``deadline_exceeded``), reconnect on the next call after the
+connection drops.
+
+Left out (the JAX package has them): the per-server QPS token bucket,
+retries with backoff, the circuit breaker and retry budget, TLS, vsock and
+unix sockets, the zero-copy big-frame read and write paths, deadline
+propagation and trace-context continuation.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import struct
+from typing import Any, Awaitable, Callable
+
+from dragonfly2_tpu_torch.trainer._msgpack import packb, unpackb
+
+logger = logging.getLogger(__name__)
+
+_LEN = struct.Struct(">I")
+MAX_FRAME = 256 << 20
+
+
+class RpcError(Exception):
+    def __init__(self, message: str, code: str = "internal"):
+        super().__init__(message)
+        self.code = code
+
+
+class ConnectionClosed(RpcError):
+    def __init__(self) -> None:
+        super().__init__("connection closed", code="unavailable")
+
+
+async def _read_frame(reader: asyncio.StreamReader) -> Any:
+    (length,) = _LEN.unpack(await reader.readexactly(_LEN.size))
+    if length > MAX_FRAME:
+        raise RpcError(f"frame too large: {length}", code="resource_exhausted")
+    return unpackb(await reader.readexactly(length))
+
+
+def _frame(msg: dict) -> bytes:
+    body = packb(msg)
+    if len(body) > MAX_FRAME:
+        raise RpcError(f"frame too large: {len(body)}", code="resource_exhausted")
+    return _LEN.pack(len(body)) + body
+
+
+Handler = Callable[[Any], Awaitable[Any]]
+
+
+class RpcServer:
+    def __init__(self, *, host: str = "127.0.0.1", port: int = 0):
+        self._handlers: dict[str, Handler] = {}
+        self.host = host
+        self.port = port
+        self._server: asyncio.AbstractServer | None = None
+        self._conns: set[asyncio.StreamWriter] = set()
+        self.register("_ping", self._ping)
+
+    async def _ping(self, payload: Any) -> str:
+        return "pong"
+
+    def register(self, method: str, handler: Handler) -> None:
+        self._handlers[method] = handler
+
+    def register_service(self, obj: Any, methods: list[str]) -> None:
+        """Expose async methods of obj taking/returning msgpack-able payloads."""
+        for name in methods:
+            self.register(name, getattr(obj, name))
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(self._on_conn, self.host, self.port)
+        self.port = self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            # drop live connections too: wait_closed() waits for their
+            # handlers, which otherwise run until the peer hangs up
+            for w in list(self._conns):
+                w.close()
+            await self._server.wait_closed()
+            self._server = None
+
+    @property
+    def address(self) -> str:
+        return f"{self.host}:{self.port}"
+
+    async def _on_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+        tasks: set[asyncio.Task] = set()
+        self._conns.add(writer)
+        try:
+            while True:
+                try:
+                    msg = await _read_frame(reader)
+                except (asyncio.IncompleteReadError, OSError):
+                    break  # the peer hung up or the transport failed
+                except (RpcError, ValueError) as e:
+                    logger.warning("bad frame (%s), closing connection", e)
+                    break
+                if not isinstance(msg, dict):
+                    logger.warning("malformed frame (%s), closing connection", type(msg).__name__)
+                    break
+                t = asyncio.ensure_future(self._dispatch(msg, writer))
+                tasks.add(t)
+                t.add_done_callback(tasks.discard)
+        finally:
+            self._conns.discard(writer)
+            for t in tasks:
+                t.cancel()
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except OSError as e:
+                logger.debug("connection close: %r", e)
+
+    async def _dispatch(self, msg: dict, writer: asyncio.StreamWriter) -> None:
+        rid = msg.get("i")
+        method = msg.get("m", "")
+        handler = self._handlers.get(method)
+        if handler is None:
+            out = {"i": rid, "e": {"code": "unimplemented", "message": f"no method {method!r}"}}
+        else:
+            try:
+                out = {"i": rid, "r": await handler(msg.get("p"))}
+            except RpcError as e:
+                out = {"i": rid, "e": {"code": e.code, "message": str(e)}}
+            except Exception as e:
+                logger.exception("rpc handler %s failed", method)
+                out = {"i": rid, "e": {"code": "internal", "message": f"{type(e).__name__}: {e}"}}
+        try:
+            frame = _frame(out)
+        except (TypeError, ValueError, RpcError) as e:  # a result the wire cannot carry
+            logger.exception("rpc handler %s returned an unencodable result", method)
+            frame = _frame({"i": rid, "e": {"code": "internal", "message": f"{type(e).__name__}: {e}"}})
+        if writer.is_closing():
+            return
+        try:
+            writer.write(frame)
+            await writer.drain()
+        except OSError as e:  # the peer is gone; its client owns recovery
+            logger.debug("response write for %s failed: %r", method, e)
+
+
+class RpcClient:
+    def __init__(self, address: str, *, timeout: float = 30.0):
+        host, sep, port = address.rpartition(":")
+        if not sep or not port.isdigit():
+            raise ValueError(f"bad address {address!r}: want host:port")
+        self.address = address
+        self._host, self._port = host, int(port)
+        self.timeout = timeout
+        self._reader: asyncio.StreamReader | None = None
+        self._writer: asyncio.StreamWriter | None = None
+        self._pending: dict[int, asyncio.Future] = {}
+        self._next_id = 0
+        self._recv_task: asyncio.Task | None = None
+        # binds to the running loop on first await (a client lives on one loop)
+        self._conn_lock = asyncio.Lock()
+
+    async def _connect(self) -> asyncio.StreamWriter:
+        async with self._conn_lock:
+            if self._writer is None or self._writer.is_closing():
+                reader, writer = await asyncio.open_connection(self._host, self._port)
+                self._reader, self._writer = reader, writer
+                self._recv_task = asyncio.ensure_future(self._recv_loop(reader))
+            return self._writer
+
+    async def _recv_loop(self, reader: asyncio.StreamReader) -> None:
+        try:
+            while True:
+                msg = await _read_frame(reader)
+                fut = self._pending.pop(msg.get("i"), None) if isinstance(msg, dict) else None
+                if fut is None or fut.done():
+                    continue
+                if "e" in msg:
+                    err = msg["e"]
+                    fut.set_exception(RpcError(err.get("message", ""), err.get("code", "internal")))
+                else:
+                    fut.set_result(msg.get("r"))
+        except (asyncio.IncompleteReadError, OSError, RpcError, ValueError, asyncio.CancelledError) as e:
+            logger.debug("rpc connection to %s ended: %r", self.address, e)
+        finally:
+            self._fail_pending()
+            async with self._conn_lock:
+                if self._reader is reader:  # this connection, not a newer one
+                    self._drop()
+
+    def _fail_pending(self) -> None:
+        for fut in self._pending.values():
+            if not fut.done():
+                fut.set_exception(ConnectionClosed())
+        self._pending.clear()
+
+    def _drop(self) -> None:
+        """Forget the connection; every caller holds _conn_lock."""
+        if self._writer is not None:
+            self._writer.close()
+        self._reader = self._writer = None  # dflint: disable=DF023 called only with _conn_lock held
+        self._recv_task = None  # dflint: disable=DF023 called only with _conn_lock held
+
+    async def call(self, method: str, payload: Any = None, *, timeout: float | None = None) -> Any:
+        writer = await self._connect()
+        self._next_id += 1
+        rid = self._next_id
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._pending[rid] = fut
+        wait = timeout or self.timeout
+        try:
+            writer.write(_frame({"i": rid, "m": method, "p": payload}))
+            await writer.drain()
+            return await asyncio.wait_for(fut, wait)
+        except asyncio.TimeoutError:
+            raise RpcError(f"{method} timed out after {wait}s", code="deadline_exceeded") from None
+        finally:
+            self._pending.pop(rid, None)
+
+    async def close(self) -> None:
+        async with self._conn_lock:
+            task, writer = self._recv_task, self._writer
+            self._drop()
+        self._fail_pending()
+        if task is not None:
+            task.cancel()
+        if writer is not None:
+            try:
+                await writer.wait_closed()
+            except OSError as e:
+                logger.debug("rpc close of %s: %r", self.address, e)
+
+    async def healthy(self) -> bool:
+        try:
+            return await self.call("_ping", timeout=2.0) == "pong"
+        except (RpcError, OSError) as e:
+            logger.debug("health probe of %s failed: %r", self.address, e)
+            return False

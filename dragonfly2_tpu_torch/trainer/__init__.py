@@ -1,7 +1,7 @@
 """Training-side code of the port: the synthetic cluster and telemetry
 generators, the telemetry-to-dataset ingest, MLP and GNN training on one
-device or a mesh, the trainer service that joins them, and the artifacts it
-publishes."""
+device or a mesh, the trainer service that joins them and its RPC server,
+and the artifacts it publishes."""
 
 from dragonfly2_tpu_torch.trainer.artifacts import (  # noqa: F401
     ARTIFACT_FORMAT,
@@ -12,6 +12,7 @@ from dragonfly2_tpu_torch.trainer.artifacts import (  # noqa: F401
     load_gnn,
     load_graph,
     load_mlp,
+    load_native,
     load_sketch,
     save_artifact,
     save_graph,

@@ -9,6 +9,14 @@ msgpack package. ``to_bytes`` gives the bytes flax gives for the same tree
 (maps in their insertion order, every integer and length in msgpack's
 smallest form); ``from_bytes`` gives back a tree of dicts with numpy leaves.
 Arrays of 2**30 bytes or more, which flax splits into chunks, are refused.
+
+``packb``/``unpackb`` widen the subset to what an RPC frame carries
+(``rpc/core.py``): nil, bools and floats (float64, the form msgpack gives a
+Python float; float32 is read too), bytes-like values and non-str map keys,
+but no ndarray. ``packb`` gives the bytes of ``msgpack.packb(obj,
+use_bin_type=True)``; ``unpackb`` reads what ``msgpack.unpackb(raw=False)``
+reads for such payloads (map keys str or bytes). The flax pair stays as
+strict as flax: it writes and reads none of the wider types.
 """
 
 from __future__ import annotations
@@ -80,28 +88,38 @@ def _pack_ext(code: int, data: bytes, out: bytearray) -> None:
     out += data
 
 
-def _pack(obj: Any, out: bytearray) -> None:
+def _pack(obj: Any, out: bytearray, rpc: bool = False) -> None:
     if isinstance(obj, Mapping):
         _pack_uint(len(obj), (None, 0xDE, 0xDF), out, fix=0x80, fix_limit=16)
         for key, val in obj.items():
-            if not isinstance(key, str):
+            if rpc:
+                _pack(key, out, rpc)
+            elif isinstance(key, str):
+                _pack_str(key, out)
+            else:
                 raise TypeError(f"map keys must be str, not {type(key).__name__}")
-            _pack_str(key, out)
-            _pack(val, out)
-    elif isinstance(obj, np.ndarray):
+            _pack(val, out, rpc)
+    elif isinstance(obj, np.ndarray) and not rpc:
         _pack_ext(_EXT_NDARRAY, _ndarray_to_bytes(obj), out)
     elif isinstance(obj, (list, tuple)):
         _pack_uint(len(obj), (None, 0xDC, 0xDD), out, fix=0x90, fix_limit=16)
         for val in obj:
-            _pack(val, out)
+            _pack(val, out, rpc)
+    elif rpc and isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
     elif isinstance(obj, int) and not isinstance(obj, bool):
         _pack_int(obj, out)
+    elif rpc and isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
     elif isinstance(obj, str):
         _pack_str(obj, out)
-    elif isinstance(obj, bytes):
-        _pack_bin(obj, out)
+    elif isinstance(obj, bytes) or (rpc and isinstance(obj, (bytearray, memoryview))):
+        _pack_bin(bytes(obj) if rpc else obj, out)
+    elif rpc and obj is None:
+        out.append(0xC0)
     else:
-        raise TypeError(f"cannot encode {type(obj).__name__} in a parameter tree")
+        raise TypeError(f"cannot encode {type(obj).__name__} in a "
+                        + ("msgpack RPC payload" if rpc else "parameter tree"))
 
 
 def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
@@ -122,10 +140,18 @@ def to_bytes(tree: Mapping[str, Any]) -> bytes:
     return bytes(out)
 
 
+def packb(obj: Any) -> bytes:
+    """Encode an RPC payload as ``msgpack.packb(obj, use_bin_type=True)`` does."""
+    out = bytearray()
+    _pack(obj, out, rpc=True)
+    return bytes(out)
+
+
 class _Reader:
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, rpc: bool = False):
         self.data = memoryview(data)
         self.pos = 0
+        self.rpc = rpc
 
     def take(self, n: int) -> memoryview:
         if self.pos + n > len(self.data):
@@ -165,17 +191,28 @@ class _Reader:
             return [self.value() for _ in range(self.uint(2 if tag == 0xDC else 4))]
         if tag in (0xDE, 0xDF):
             return self.map(self.uint(2 if tag == 0xDE else 4))
-        if 0xD4 <= tag <= 0xD8:
+        if self.rpc:
+            if tag == 0xC0:
+                return None
+            if tag in (0xC2, 0xC3):
+                return tag == 0xC3
+            if tag == 0xCA:
+                return struct.unpack(">f", self.take(4))[0]
+            if tag == 0xCB:
+                return struct.unpack(">d", self.take(8))[0]
+        elif 0xD4 <= tag <= 0xD8:
             return self.ext(1 << (tag - 0xD4))
-        if tag in (0xC7, 0xC8, 0xC9):
+        elif tag in (0xC7, 0xC8, 0xC9):
             return self.ext(self.uint(sizes[tag - 0xC7]))
+        if self.rpc:
+            raise ValueError(f"msgpack type 0x{tag:02x} is outside the subset RPC payloads carry")
         raise ValueError(f"msgpack type 0x{tag:02x} is outside the subset flax writes for parameters")
 
     def map(self, n: int) -> dict:
         out = {}
         for _ in range(n):
             key = self.value()
-            if not isinstance(key, str):
+            if not isinstance(key, (str, bytes) if self.rpc else str):
                 raise ValueError(f"map key {key!r} is not a str")
             out[key] = self.value()
         return out
@@ -197,6 +234,17 @@ def from_bytes(data: bytes) -> Any:
     dicts with numpy leaves. Raises ValueError on anything outside that
     subset or on truncated or trailing bytes."""
     reader = _Reader(data)
+    out = reader.value()
+    if reader.pos != len(reader.data):
+        raise ValueError("trailing bytes after the msgpack value")
+    return out
+
+
+def unpackb(data: bytes) -> Any:
+    """Decode an RPC payload as ``msgpack.unpackb(data, raw=False)`` does.
+    Raises ValueError on a type outside that subset or on truncated or
+    trailing bytes."""
+    reader = _Reader(data, rpc=True)
     out = reader.value()
     if reader.pos != len(reader.data):
         raise ValueError("trailing bytes after the msgpack value")

@@ -10,9 +10,15 @@ compares live scoring features against), and beside them the GNN's
 the other writes. ``artifact_digest`` covers every file, so tampering with
 any of them fails ``verify_artifact`` before a scorer attaches it.
 
-Still to come with later slices: ``load_native`` (the C++ scorer's ctypes
-binding) and the fault-injection hook that the JAX digest passes each file
-through.
+``load_native`` opens ``scorer.dfsc`` in the port's copy of the C++
+scorer (``native.NativeScorer``).
+
+Not ported: the JAX package's ``artifact_digest`` passes each file's bytes
+through its fault-injection layer (the faultline ``model.load`` mutate
+point) before hashing, so its chaos tests can corrupt a load in flight.
+The port has no faultline, so that chaos cannot reach a port load; the
+port's tests corrupt an artifact the way the reference's rollout tests also
+do, by flipping bytes on disk after the digest was taken.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.models.graphsage import TopoGraph, TopoScorer
 from dragonfly2_tpu_torch.models.mlp import BandwidthMLP
 from dragonfly2_tpu_torch.models.weights import full_state_dict, params_from_flax, params_to_flax
-from dragonfly2_tpu_torch.native.scorer import export_scorer_artifact
+from dragonfly2_tpu_torch.native.scorer import NativeScorer, export_scorer_artifact
 from dragonfly2_tpu_torch.observability.sketches import FeatureSketch
 from dragonfly2_tpu_torch.trainer import _msgpack
 
@@ -208,3 +214,11 @@ def save_native(
     with torch.inference_mode():
         z = m.embed(graph.to(dev)).float().cpu().numpy()
     return export_scorer_artifact(params_to_flax(sd), z, Path(directory) / "scorer.dfsc")
+
+
+def load_native(directory: str | Path) -> NativeScorer | None:
+    """The artifact's native C++ scorer if it has a ``scorer.dfsc``, else None."""
+    path = Path(directory) / "scorer.dfsc"
+    if not path.exists():
+        return None
+    return NativeScorer(path)

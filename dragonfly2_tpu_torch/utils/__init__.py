@@ -1,1 +1,2 @@
-"""Shared infrastructure of the port: the injectable clock."""
+"""Shared infrastructure of the port: the injectable clock and the
+service entry points' signal wait."""

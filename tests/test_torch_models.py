@@ -175,6 +175,37 @@ def test_dense_layernorm_gelu_match_flax(dtype):
                                np.asarray(fnn.gelu(jnp.asarray(gx))), rtol=1e-6, atol=1e-6)
 
 
+def _all_bf16(lo: float, hi: float) -> torch.Tensor:
+    """Every finite bf16 value in [lo, hi]."""
+    v = torch.from_numpy(np.arange(1 << 16, dtype=np.uint16).view(np.int16).copy()).view(torch.bfloat16)
+    f = v.float()
+    return v[torch.isfinite(f) & (f >= lo) & (f <= hi)]
+
+
+def test_gelu_value_and_gradient_are_jaxs_op_for_op():
+    """tanh-GELU in bf16, on every bf16 value in [-12, 12] with a random
+    cotangent each: the gradient equals jax.nn.gelu's VJP bit for bit, and
+    is exactly 0 wherever JAX's is (below -3.06, where tanh rounds to -1);
+    the value equals JAX's but where XLA flushes a subnormal product to 0.
+    torch's fused F.gelu works in f32 inside and misses on both counts."""
+    x = _all_bf16(-12.0, 12.0)
+    ct = torch.from_numpy(np.random.default_rng(0).standard_normal(len(x)).astype(np.float32)).to(torch.bfloat16)
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    jy, vjp = jax.vjp(lambda v: jax.nn.gelu(v, approximate=True), xj)
+    (jg,) = vjp(jnp.asarray(ct.float().numpy()).astype(jnp.bfloat16))
+    jy, jg = np.asarray(jy.astype(jnp.float32)), np.asarray(jg.astype(jnp.float32))
+    xt = x.clone().requires_grad_(True)
+    y = graphsage.gelu(xt)
+    y.backward(ct)
+    assert y.dtype == xt.grad.dtype == torch.bfloat16
+    np.testing.assert_array_equal(xt.grad.float().numpy(), jg)
+    value_gap = np.abs(y.detach().float().numpy() - jy)
+    assert value_gap.max() <= torch.finfo(torch.bfloat16).tiny  # subnormals only
+    ref = x.clone().requires_grad_(True)
+    torch.nn.functional.gelu(ref, approximate="tanh").backward(ct)
+    assert np.any((jg == 0) & (ref.grad.float().numpy() != 0))  # what the op-for-op form repairs
+
+
 def test_topograph_to_makes_tensors():
     c = synthetic.make_cluster(num_nodes=16, num_neighbors=4, num_pairs=8, seed=0)
     g = c.graph.to("cpu")

@@ -58,16 +58,26 @@ JAX_LOSS_ABS, JAX_PARAM_ABS = 1e-3, 1e-2
 # (``_adam_reach``); every other element is held to JAX_PARAM_ABS. At most
 # FLOOR_SHARE of the elements may lie on the floor.
 GRAD_FLOOR, FLOOR_SHARE = 1e-4, 0.02
+# On one device, with tanh-GELU's value and gradient JAX's op for op
+# (models/graphsage.py ``_Gelu``), the port's gradient is 0 wherever JAX's
+# is, and every parameter, on the floor or off it, ends within
+# JAX_ONE_DEVICE_ABS of JAX's (3.6e-3 at most on these inputs; 1.096e-2,
+# on four floor elements, with torch's fused F.gelu).
+JAX_ONE_DEVICE_ABS = 5e-3
 # Against the port's own single-process step: the same ops, but the mesh
-# sums the gradient of each half of the batch, and LayerNorm's moments over
-# "model" shards, in other orders, so bf16 roundings fall elsewhere. The
-# pre-clip norm is compared at every step on the same parameters (the mesh
-# run's, gathered before the step): within 1e-4 relative at step 0, and
-# within 1e-2 at every step, because the roundings weigh more as the loss
-# falls 20-fold (the test prints each step's gap: 8.6e-3 at step 4 on these
-# inputs). JAX's own (2, 2) mesh against its one device, on the same parameters,
-# parts from 1e-4 as well (``test_jax_itself_parts_from_one_device_as_the_loss_falls``).
-PORT_LOSS_ABS, PORT_PARAM_ABS, PORT_GNORM0_REL, PORT_GNORM_REL = 1e-4, 1e-3, 1e-4, 1e-2
+# sums the gradient of each half of the batch, and the products over
+# "model" shards, in other orders. Those partial sums are taken in f32 and
+# round to bf16 once, as one device's do (models/graphsage.py ``Dense``,
+# the f32 neighbour gather), so the pre-clip norm, compared at every step on
+# the same parameters (the mesh run's, gathered before the step), stays
+# within 1e-4 relative at step 0 and PORT_GNORM_REL at every step (the test
+# prints the largest: 9.5e-5 on these inputs; 8.6e-3 at step 4 while the
+# partials summed in bf16). JAX's own (2, 2) mesh against its one device, on
+# the same parameters, meets 1e-4 at step 0 and parts by up to 5.6e-4 later
+# as the loss falls (it sums its partials as it likes), held to
+# JAX_GNORM_REL (``test_jax_itself_parts_from_one_device_as_the_loss_falls``).
+PORT_LOSS_ABS, PORT_PARAM_ABS, PORT_GNORM0_REL, PORT_GNORM_REL = 1e-4, 1e-3, 1e-4, 2e-4
+JAX_GNORM_REL = 1e-3
 
 CLUSTER = dict(num_nodes=64, num_neighbors=4, num_pairs=2048, seed=1)
 TRAIN = dict(hidden=32, embed_dim=16, num_layers=2, batch_size=128, warmup_steps=2)
@@ -445,6 +455,11 @@ def _on_floor(grads: list[np.ndarray]) -> np.ndarray:
     return np.all(g <= GRAD_FLOOR * leaf_max, axis=0)
 
 
+def _zeros(grads: list[dict], name: str) -> np.ndarray:
+    """Where one leaf's gradient is exactly 0, step by step ([steps, ...])."""
+    return np.stack([g[name] for g in grads]) == 0
+
+
 def _floor_split(got, ref_params, ref_grads):
     """The gaps of ``got`` to the reference's final parameters, off the
     gradient floor and on it, and the floor's mask of each leaf."""
@@ -519,27 +534,28 @@ def test_four_ranks_match_jax_shard_for_training(four_ranks):
 
 
 def test_port_single_device_gap_to_jax_lies_on_the_gradient_floor(four_ranks):
-    """On one device, with no mesh, the port already parts from JAX by more
-    than JAX_PARAM_ABS on a few elements. Every such element lies on the
-    gradient floor: its reference gradient is rounding, and the two
-    frameworks' Adam steps go opposite ways. The output lists each one with
-    its gradients and both frameworks' updates, step by step."""
+    """On one device, with no mesh, the port and JAX share their gradient
+    floor (its elements come from the init draw: tools/torch_gap_probe.py
+    counts them over five seeds), and the port's gradient is exactly 0
+    wherever JAX's is: its GELU is JAX's op for op. Every parameter, on the
+    floor or off it, ends within JAX_ONE_DEVICE_ABS of JAX's. The output
+    lists the largest gap of each leaf."""
     jax_losses, jax_params, jax_grads = four_ranks["jax_single"]
     port_losses, _, port_params, port_grads = four_ranks["port"]
     assert float(np.abs(port_losses - jax_losses).max()) <= JAX_LOSS_ABS
     off, on, n_on = _assert_within_jax_bounds(port_params[-1], jax_params, jax_grads)
     _, _, masks = _floor_split(port_params[-1], jax_params, jax_grads)
     print(f"one device, port vs JAX: parameters {off:.4g} off the floor, {on:.4g} on it ({n_on} elements)")
+    assert max(off, on) <= JAX_ONE_DEVICE_ABS, (off, on)
+    shared = 0
     for name, mask in masks.items():
+        port_mask = _on_floor([g[name] for g in port_grads])
+        shared += int((mask & port_mask).sum())
+        # where JAX's gradient is 0, so is the port's
+        assert not np.any(_zeros(jax_grads, name) & ~_zeros(port_grads, name)), name
         gap = np.abs(port_params[-1][name] - jax_params[-1][name])
-        for idx in zip(*np.nonzero(gap > JAX_PARAM_ABS)):
-            assert mask[idx]
-            peak = max(float(np.abs(g[name]).max()) for g in jax_grads)
-            print(f"  {name}{list(map(int, idx))}: gap {gap[idx]:.4g}; largest gradient of the leaf {peak:.3g}")
-            for t in range(STEPS):
-                print(f"    step {t}: gradient JAX {jax_grads[t][name][idx]:+.3e} port {port_grads[t][name][idx]:+.3e}; "
-                      f"update JAX {jax_params[t + 1][name][idx] - jax_params[t][name][idx]:+.3e} "
-                      f"port {port_params[t + 1][name][idx] - port_params[t][name][idx]:+.3e}")
+        print(f"  {name}: largest gap {gap.max():.3g}, {int(mask.sum())} elements on the floor")
+    assert shared >= 0.99 * n_on, (shared, n_on)
 
 
 def test_four_ranks_match_the_single_process_port_step(four_ranks):
@@ -562,8 +578,8 @@ def test_four_ranks_match_the_single_process_port_step(four_ranks):
 def test_jax_itself_parts_from_one_device_as_the_loss_falls(four_ranks):
     """The reference's own sharding error, on the parameters the mesh run
     held before each step: JAX's gradient norm on its (2, 2) mesh against
-    its one device. It meets 1e-4 at step 0 and leaves it as the loss falls,
-    as the port's does (PORT_GNORM_REL)."""
+    its one device. It meets 1e-4 at step 0 and may leave it as the loss
+    falls (JAX_GNORM_REL); the port's mesh now stays within PORT_GNORM_REL."""
     jmesh = jax_mesh.make_mesh(jax.devices()[:4], model_parallel=2)
     cfg = jax_train.GNNTrainConfig(**TRAIN)
     graph = jax_synthetic.make_cluster(**CLUSTER).graph
@@ -581,7 +597,7 @@ def test_jax_itself_parts_from_one_device_as_the_loss_falls(four_ranks):
         on_mesh = float(norm(placed, sg, jax.device_put(jb, jax_mesh.batch_sharding(jmesh))))
         gaps.append(abs(on_mesh - one) / one)
     print("JAX (2, 2) vs one device, pre-clip norm on the mesh run's parameters:", [f"{v:.2g}" for v in gaps])
-    assert gaps[0] <= PORT_GNORM0_REL and max(gaps) <= PORT_GNORM_REL, gaps
+    assert gaps[0] <= PORT_GNORM0_REL and max(gaps) <= JAX_GNORM_REL, gaps
 
 
 def test_each_rank_holds_only_its_data_rows(four_ranks):
