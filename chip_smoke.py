@@ -75,7 +75,26 @@ Phases, each of which must hold or the run exits non-zero at once:
              be refused as digest_mismatch. Upload seconds and rows/s, close
              to published, load + verify, per-round p50/p99 of each scorer.
              Cut as the ingest phase is, in GNN steps only.
-9. kernels   each kernel against its plain PyTorch version on the card, at the
+9. stress    the port's dfstress --scoring at the tool's own size: the artifact
+             of build_scoring_artifact on the card (1024 hosts, K=16,
+             GNNTrainConfig's default widths: hidden 256, embed 128, 3 layers),
+             loaded by load_scorer_verified as the native C++ scorer (host
+             CPU) and, with DRAGONFLY_NATIVE_SCORER=0, as GNNScorer on the
+             card; both score the same 64 fixed rounds of 40 within 5e-3, every
+             score finite and in (0, 1); a model.load:corrupt faultline makes
+             the loader refuse the artifact as digest_mismatch, and is disabled
+             after. Then run_scoring_stress at the CLI's defaults (256 hosts,
+             40 candidates, concurrency 8) once per engine, each of which must
+             serve as named (native on the host, torch on the card), with
+             fewer micro-batch flushes than rounds. Cut in rounds only: 2,000
+             a leg, where the CLI's default is 20,000, and 400 in each torch
+             worker leg. Each engine's score() on one fixed round is timed
+             on the main thread, on a worker thread, and on a worker thread
+             fed by 8 asyncio drivers (the workers1 leg's shape); for the
+             card's engine each window is traced with torch.profiler too,
+             and the union of its kernel, copy and set spans over the
+             untraced window's time gives the card's busy share.
+10. kernels  each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
@@ -90,6 +109,7 @@ package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import asyncio
 import concurrent.futures
 import contextlib
@@ -120,9 +140,11 @@ from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import (
     transpose_index,
 )
 from dragonfly2_tpu_torch import resolve_device
+from dragonfly2_tpu_torch.cli import dfstress
 from dragonfly2_tpu_torch.models.weights import full_state_dict
 from dragonfly2_tpu_torch.parallel import distributed as dist_lib
 from dragonfly2_tpu_torch.parallel import mesh as meshlib
+from dragonfly2_tpu_torch.resilience import faultline
 from dragonfly2_tpu_torch.rpc.core import RpcServer
 from dragonfly2_tpu_torch.scheduler import manager_link
 from dragonfly2_tpu_torch.scheduler.announcer import CHUNK_ROWS, TrainerAnnouncer
@@ -165,6 +187,12 @@ SHARDED_LOSS_MAX_ABS, SHARDED_PARAM_MAX_ABS = 1e-4, 1e-3
 # about 1 GiB of checkpoint-like tensors: 7 bf16 [8192, 8192] weights, one
 # f32 [8192, 4096] and two f32 [8192] vectors
 STAGE_BF16, STAGE_F32, STAGE_SEED = [(8192, 8192)] * 7, [(8192, 4096), (8192,), (8192,)], 17
+# the stress phase: the CLI's defaults, cut from 20,000 rounds a leg; the
+# engines held on STRESS_CHECK_ROUNDS fixed rounds to the serving bound
+STRESS_ROUNDS, STRESS_HOSTS, STRESS_CANDIDATES, STRESS_CONCURRENCY = 2000, 256, 40, 8
+# Rounds of each torch worker leg (at 1.4-1.6 ms a round), and score() calls
+# in each window of the busy-share measurement.
+STRESS_TORCH_WORKER_ROUNDS, BUSY_ROUNDS = 400, 300
 # tests/test_ops.py's own tolerances for the Pallas kernel against XLA
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 EMBED_MIN_COSINE, SCORE_MAX_ABS = 0.999, 5e-3
@@ -882,6 +910,169 @@ def wiring() -> dict:
     return numbers
 
 
+def device_busy_us(prof) -> float:
+    """The card's busy time in a torch.profiler trace: the union of its
+    kernel, copy and set spans, so that no span counts twice."""
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def round_costs(scorer, feats, child, parent, traced: bool) -> dict:
+    """µs of host time a score() call on one fixed round, BUSY_ROUNDS calls
+    a window, on the main thread, on a worker thread, and on a worker thread
+    fed by STRESS_CONCURRENCY asyncio drivers. With ``traced``, each window
+    is run again under torch.profiler: the card's busy time a round, and
+    its share of the untraced and of the traced window."""
+
+    def loop(n: int) -> None:
+        for _ in range(n):
+            scorer.score(feats, child=child, parent=parent)
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        async def drive():
+            ev_loop, done = asyncio.get_running_loop(), 0
+
+            async def driver():
+                nonlocal done
+                while done < BUSY_ROUNDS:
+                    done += 1
+                    await ev_loop.run_in_executor(pool, loop, 1)
+
+            await asyncio.gather(*(driver() for _ in range(STRESS_CONCURRENCY)))
+
+        shapes = {"main": lambda: loop(BUSY_ROUNDS),
+                  "worker": lambda: pool.submit(loop, BUSY_ROUNDS).result(),
+                  "worker_under_loop": lambda: asyncio.run(drive())}
+        out = {}
+        for name, fn in shapes.items():
+            fn()  # warm: the worker thread, the card
+            t0 = time.perf_counter()
+            fn()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            row = {"host_us_per_round": wall_us / BUSY_ROUNDS}
+            if traced:
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    traced_us = (time.perf_counter() - t0) * 1e6
+                busy = device_busy_us(prof)
+                if busy <= 0:
+                    raise AssertionError(f"the traced {name} window ran nothing on the card")
+                row.update(traced_us_per_round=traced_us / BUSY_ROUNDS, device_us_per_round=busy / BUSY_ROUNDS,
+                           busy_share_untraced=busy / wall_us, busy_share_traced=busy / traced_us)
+            out[name] = row
+    return out
+
+
+def stress_run(native: bool) -> dict:
+    """run_scoring_stress at the CLI's defaults, cut in rounds, with
+    DRAGONFLY_NATIVE_SCORER on or off; it builds its own artifact on the card."""
+    old = os.environ.get("DRAGONFLY_NATIVE_SCORER")
+    os.environ["DRAGONFLY_NATIVE_SCORER"] = "1" if native else "0"
+    try:
+        args = argparse.Namespace(rounds=STRESS_ROUNDS, concurrency=STRESS_CONCURRENCY,
+                                  candidates=STRESS_CANDIDATES, hosts=STRESS_HOSTS, device=None,
+                                  worker_rounds=None if native else STRESS_TORCH_WORKER_ROUNDS)
+        t0 = time.perf_counter()
+        out = asyncio.run(dfstress.run_scoring_stress(args))
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        if old is None:
+            del os.environ["DRAGONFLY_NATIVE_SCORER"]
+        else:
+            os.environ["DRAGONFLY_NATIVE_SCORER"] = old
+
+
+def stress() -> dict:
+    """The scoring stress on both engines, after the engines are held
+    against each other on fixed rounds and the loader against a faultline."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path, digest, hosts, pair_feats = dfstress.build_scoring_artifact(pathlib.Path(tmp) / "gnn-stress")
+        build_s = time.perf_counter() - t0
+        path = str(path)
+        native, _, native_load_s = timed_load(path, digest, native=True)
+        if native.engine != "native":
+            raise AssertionError(f"the loader served engine {native.engine!r}, not the native scorer")
+        torch_scorer, _, torch_load_s = timed_load(path, digest, native=False)
+        if torch_scorer.engine != "torch" or torch_scorer.device.type != "cuda":
+            raise AssertionError(f"the fallback served {torch_scorer.engine!r} on {torch_scorer.device}")
+        feats, child, parent = dfstress.stress_rounds(
+            hosts, pair_feats, hosts=STRESS_HOSTS, concurrency=STRESS_CONCURRENCY, candidates=STRESS_CANDIDATES)
+        scores = {}
+        for name, scorer in (("native", native), ("torch", torch_scorer)):
+            out = scorer.score_rounds(feats, child=child, parent=parent)
+            if out.shape != child.shape or not np.all(np.isfinite(out)) or not np.all((out > 0) & (out < 1)):
+                raise AssertionError(f"{name} scores of the fixed rounds: shape {out.shape}, "
+                                     f"finite {np.isfinite(out).all()}, in (0, 1) {((out > 0) & (out < 1)).all()}")
+            scores[name] = out
+        gap = float(np.abs(scores["native"] - scores["torch"]).max())
+        if gap > SCORE_MAX_ABS:
+            raise AssertionError(f"native and torch scores of the stress artifact differ by {gap} > {SCORE_MAX_ABS}")
+        costs = {name: round_costs(scorer, feats[0], child[0], parent[0], traced=name == "torch")
+                 for name, scorer in (("native", native), ("torch", torch_scorer))}
+        native.close()
+        fl = faultline.enable("model.load:corrupt:1.0")
+        try:
+            manager_link.load_scorer_verified(path, digest)
+            raise AssertionError("an artifact corrupted in flight loaded")
+        except artifacts.ArtifactIntegrityError as e:
+            kind = manager_link.classify_swap_error(e)
+        finally:
+            faultline.disable()
+        if kind != "digest_mismatch" or fl.injected_total("model.load") == 0 or faultline.ACTIVE is not None:
+            raise AssertionError(f"faultline corrupt load: {kind}, {fl.injected} injected, active {faultline.ACTIVE}")
+    runs = {"native": stress_run(native=True), "torch": stress_run(native=False)}
+    for name, run in runs.items():
+        ex = run["extra"]
+        where_ok = ex["device"] == "cpu" if name == "native" else ex["device"].startswith("cuda")
+        if ex["engine"] != name or not where_ok:
+            raise AssertionError(f"the {name} stress served engine {ex['engine']!r} on {ex['device']}")
+        if not 0 < ex["native_flushes"] < ex["native_rounds"] or not run["value"] > 0:
+            raise AssertionError(f"the {name} stress: {ex['native_flushes']} flushes for "
+                                 f"{ex['native_rounds']} rounds, {run['value']} rounds/s")
+    numbers = {
+        "nodes": len(hosts), "hosts": STRESS_HOSTS, "candidates": STRESS_CANDIDATES,
+        "concurrency": STRESS_CONCURRENCY, "rounds_microbatch": STRESS_ROUNDS,
+        "rounds_worker_legs": {"native": STRESS_ROUNDS, "torch": STRESS_TORCH_WORKER_ROUNDS},
+        "round_costs": costs,
+        "build_s": build_s, "native_load_verify_s": native_load_s, "torch_load_verify_s": torch_load_s,
+        "fixed_rounds": len(feats), "score_max_abs": gap, "swap_error_of_corrupt_load": kind,
+        "host_cpu": host_cpu(), "runs": runs, "wall_s": time.perf_counter() - t_phase,
+    }
+    for name, run in runs.items():
+        ex = run["extra"]
+        print(f"  {name} ({ex['engine']} on {ex['device']}): best {ex['eval_best_config']} {run['value']} "
+              f"rounds/s; microbatch {ex['rounds_per_sec_microbatch']}, workers1 {ex['rounds_per_sec_workers1']}, "
+              f"workers2 {ex['rounds_per_sec_workers2']}; p50/p99 {ex['eval_p50_ms']}/{ex['eval_p99_ms']} ms; "
+              f"{ex['native_flushes']} flushes for {ex['native_rounds']} rounds; score_rounds "
+              f"{ex['ffi_us_per_round_amortized']} us a round; run {run['wall_s']:.1f} s")
+    print(f"  artifact built on the card in {build_s:.2f} s; load + verify native {native_load_s:.3f} s, "
+          f"torch {torch_load_s:.3f} s; {len(feats)} fixed rounds: largest score gap {gap:.3g}; "
+          f"corrupt load: {kind}; phase {numbers['wall_s']:.1f} s")
+    for name, shapes in costs.items():
+        print(f"  {name} score() on one round, us of host time (main / worker / worker under the loop): "
+              + " / ".join(f"{c['host_us_per_round']:.1f}" for c in shapes.values())
+              + ("; card busy " + " / ".join(f"{c['device_us_per_round']:.1f} us = "
+                                            f"{100 * c['busy_share_untraced']:.1f}%" for c in shapes.values())
+                 + " of the untraced window" if name == "torch" else ""))
+    return numbers
+
+
 def edge_case_inputs() -> dict:
     """Named (h, neighbors, mask) CPU inputs that each kernel must get right."""
     rng = np.random.default_rng(0)
@@ -1114,6 +1305,7 @@ def zero_counts() -> None:
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
         return 1
@@ -1205,6 +1397,16 @@ def main() -> int:
             raise AssertionError(f"the wiring path launched a kernel it does not call: {seen}")
         print(json.dumps({"wiring": numbers, "card": card}))
 
+    with phase("stress"):
+        zero_counts()
+        numbers = stress()
+        # no kernel is on this path: the artifact's embedding runs SAGELayer's
+        # plain ops, and scoring the C++ scorer or GNNScorer's plain ops
+        numbers["kernel_launches"] = seen = counts()
+        if any(seen.values()):
+            raise AssertionError(f"the stress path launched a kernel it does not call: {seen}")
+        print(json.dumps({"stress": numbers, "card": card}))
+
     with phase("kernels"):
         g = cluster.graph.to("cuda")
         rows = [kernel_row_fwd(h0, g.neighbors, g.mask, launches["neighbor_agg_fwd"], usage["neighbor_agg_fwd"]),
@@ -1212,6 +1414,7 @@ def main() -> int:
                                usage["neighbor_agg_bwd"])]
         edge_cases()
 
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -25,10 +25,15 @@ Layout:
   utils/          the injectable clock, the entry points' signal wait
   native/         the micro-batching request front, the native C++ scorer
                   (csrc/scorer.cc) and its scorer.dfsc writer
-  rpc/            the JAX package's wire protocol, the trainer's RPC
-                  adapters, the manager client's trainer-side subset
+  rpc/            the JAX package's wire protocol (TCP or a unix socket),
+                  the trainer's RPC adapters, the manager client's
+                  trainer-side subset
   scheduler/      the model loader a scheduler attaches artifacts through,
                   the announcer that uploads telemetry to the trainer
+  resilience/     the seeded fault injection (faultline) on the port's
+                  artifact loads and RPC wire
+  cli/            dfstress, the load generator (daemon downloads, the
+                  scoring stress over both engines), and its probe
 
 Entry points run on the card unless the caller asks for the CPU.
 """

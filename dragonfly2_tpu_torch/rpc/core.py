@@ -9,17 +9,25 @@ byte-equal to ``msgpack.packb(use_bin_type=True)``), so either package's
 client talks to the other's server. The server accepts a request's ``"t"``
 (a caller's trace context) and ignores it.
 
-Server: asyncio TCP server, a method registry, the JAX package's error
-mapping (an unknown method is ``unimplemented``; an ``RpcError`` keeps its
-code; any other exception is ``internal`` with its type and message).
-Client: one TCP connection, requests multiplexed on it by id, a per-call
+Server: asyncio server on TCP or a unix socket (``unix_path=``), a
+method registry, the JAX package's error mapping (an unknown method is
+``unimplemented``; an ``RpcError`` keeps its code; any other exception is
+``internal`` with its type and message).
+Client: one connection, requests multiplexed on it by id, a per-call
 timeout (``deadline_exceeded``), reconnect on the next call after the
-connection drops.
+connection drops. An address is TCP only when it ends in ``:<digits>``;
+any other address is a unix socket path, the JAX package's rule.
+
+Fault injection (``resilience.faultline``): ``rpc.read`` fires at the top
+of every frame read, client and server; ``rpc.write`` is checked before
+every frame the server or the client writes. An injected fault fails the
+read or write as a broken transport would: a server drops the connection
+or the reply, a client's call raises.
 
 Left out (the JAX package has them): the per-server QPS token bucket,
-retries with backoff, the circuit breaker and retry budget, TLS, vsock and
-unix sockets, the zero-copy big-frame read and write paths, deadline
-propagation and trace-context continuation.
+retries with backoff, the circuit breaker and retry budget, TLS, vsock,
+the write coalescer, the zero-copy big-frame read and write paths,
+deadline propagation and trace-context continuation.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import logging
 import struct
 from typing import Any, Awaitable, Callable
 
+from dragonfly2_tpu_torch.resilience import faultline
 from dragonfly2_tpu_torch.trainer._msgpack import packb, unpackb
 
 logger = logging.getLogger(__name__)
@@ -49,6 +58,8 @@ class ConnectionClosed(RpcError):
 
 
 async def _read_frame(reader: asyncio.StreamReader) -> Any:
+    if faultline.ACTIVE is not None:
+        await faultline.ACTIVE.fire("rpc.read")
     (length,) = _LEN.unpack(await reader.readexactly(_LEN.size))
     if length > MAX_FRAME:
         raise RpcError(f"frame too large: {length}", code="resource_exhausted")
@@ -66,10 +77,11 @@ Handler = Callable[[Any], Awaitable[Any]]
 
 
 class RpcServer:
-    def __init__(self, *, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, *, host: str = "127.0.0.1", port: int = 0, unix_path: str | None = None):
         self._handlers: dict[str, Handler] = {}
         self.host = host
         self.port = port
+        self.unix_path = unix_path
         self._server: asyncio.AbstractServer | None = None
         self._conns: set[asyncio.StreamWriter] = set()
         self.register("_ping", self._ping)
@@ -86,8 +98,11 @@ class RpcServer:
             self.register(name, getattr(obj, name))
 
     async def start(self) -> None:
-        self._server = await asyncio.start_server(self._on_conn, self.host, self.port)
-        self.port = self._server.sockets[0].getsockname()[1]
+        if self.unix_path:
+            self._server = await asyncio.start_unix_server(self._on_conn, path=self.unix_path)
+        else:
+            self._server = await asyncio.start_server(self._on_conn, self.host, self.port)
+            self.port = self._server.sockets[0].getsockname()[1]
 
     async def stop(self) -> None:
         if self._server is not None:
@@ -101,7 +116,7 @@ class RpcServer:
 
     @property
     def address(self) -> str:
-        return f"{self.host}:{self.port}"
+        return self.unix_path or f"{self.host}:{self.port}"
 
     async def _on_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
         tasks: set[asyncio.Task] = set()
@@ -153,19 +168,17 @@ class RpcServer:
         if writer.is_closing():
             return
         try:
+            if faultline.ACTIVE is not None:
+                faultline.ACTIVE.check("rpc.write")
             writer.write(frame)
             await writer.drain()
-        except OSError as e:  # the peer is gone; its client owns recovery
+        except OSError as e:  # the peer is gone, or an injected fault; its client owns recovery
             logger.debug("response write for %s failed: %r", method, e)
 
 
 class RpcClient:
     def __init__(self, address: str, *, timeout: float = 30.0):
-        host, sep, port = address.rpartition(":")
-        if not sep or not port.isdigit():
-            raise ValueError(f"bad address {address!r}: want host:port")
         self.address = address
-        self._host, self._port = host, int(port)
         self.timeout = timeout
         self._reader: asyncio.StreamReader | None = None
         self._writer: asyncio.StreamWriter | None = None
@@ -178,7 +191,13 @@ class RpcClient:
     async def _connect(self) -> asyncio.StreamWriter:
         async with self._conn_lock:
             if self._writer is None or self._writer.is_closing():
-                reader, writer = await asyncio.open_connection(self._host, self._port)
+                # TCP only when the address ends in ":<digits>"; anything
+                # else (absolute, relative or colon-holding paths) is a unix socket
+                host, _, port = self.address.rpartition(":")
+                if port.isdigit():
+                    reader, writer = await asyncio.open_connection(host, int(port))
+                else:
+                    reader, writer = await asyncio.open_unix_connection(self.address)
                 self._reader, self._writer = reader, writer
                 self._recv_task = asyncio.ensure_future(self._recv_loop(reader))
             return self._writer
@@ -224,6 +243,8 @@ class RpcClient:
         self._pending[rid] = fut
         wait = timeout or self.timeout
         try:
+            if faultline.ACTIVE is not None:
+                faultline.ACTIVE.check("rpc.write")
             writer.write(_frame({"i": rid, "m": method, "p": payload}))
             await writer.drain()
             return await asyncio.wait_for(fut, wait)

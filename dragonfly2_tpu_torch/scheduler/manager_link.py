@@ -6,8 +6,9 @@ The port of the loader half of dragonfly2_tpu/scheduler/manager_link.py
 with the same signatures, so that a scheduler's model watch can call them
 in place of the JAX package's, which reach flax:
 
-- ``load_scorer_verified(path, digest)``: the registry digest recomputed
-  over the artifact's files first; only a bit-exact artifact is loaded.
+- ``load_scorer_verified(path, digest)``: the faultline ``model.load``
+  point first, then the registry digest recomputed over the artifact's
+  files; only a bit-exact artifact is loaded.
 - ``load_scorer(path)``: ``(scorer, host_index)``. The native C++ scorer
   when the artifact has a ``scorer.dfsc`` and ``DRAGONFLY_NATIVE_SCORER`` is
   not ``0`` (engine ``"native"``, on the host's CPU); otherwise the port's
@@ -18,9 +19,6 @@ in place of the JAX package's, which reach flax:
 - ``classify_swap_error(exc)``: the reference's swap-error kinds.
 - ``load_drift_reference(path)``: the artifact's training-reference
   ``FeatureSketch``, or None.
-
-Not ported: the faultline ``model.load`` check that the reference fires
-before verifying (the port has no fault-injection layer).
 """
 
 from __future__ import annotations
@@ -32,13 +30,19 @@ import torch
 
 from dragonfly2_tpu_torch.models.scorer import GNNScorer
 from dragonfly2_tpu_torch.observability.sketches import FeatureSketch
+from dragonfly2_tpu_torch.resilience import faultline
 from dragonfly2_tpu_torch.trainer import artifacts
 
 logger = logging.getLogger(__name__)
 
 
 def load_scorer_verified(path: str, digest: str = "", *, device: str | torch.device | None = None):
-    """Verify the artifact against the registry row's digest, then load it."""
+    """Verify the artifact against the registry row's digest, then load it.
+    An injected ``model.load`` fault fires before verification (a latency
+    rule blocks: a load runs off the event loop); a ``corrupt`` or
+    ``truncate`` rule damages the bytes the digest reads."""
+    if faultline.ACTIVE is not None:
+        faultline.ACTIVE.check("model.load", blocking_latency=True)
     artifacts.verify_artifact(path, digest)
     return load_scorer(path, device=device)
 

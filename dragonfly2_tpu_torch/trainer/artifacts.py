@@ -12,13 +12,6 @@ any of them fails ``verify_artifact`` before a scorer attaches it.
 
 ``load_native`` opens ``scorer.dfsc`` in the port's copy of the C++
 scorer (``native.NativeScorer``).
-
-Not ported: the JAX package's ``artifact_digest`` passes each file's bytes
-through its fault-injection layer (the faultline ``model.load`` mutate
-point) before hashing, so its chaos tests can corrupt a load in flight.
-The port has no faultline, so that chaos cannot reach a port load; the
-port's tests corrupt an artifact the way the reference's rollout tests also
-do, by flipping bytes on disk after the digest was taken.
 """
 
 from __future__ import annotations
@@ -39,6 +32,7 @@ from dragonfly2_tpu_torch.models.mlp import BandwidthMLP
 from dragonfly2_tpu_torch.models.weights import full_state_dict, params_from_flax, params_to_flax
 from dragonfly2_tpu_torch.native.scorer import NativeScorer, export_scorer_artifact
 from dragonfly2_tpu_torch.observability.sketches import FeatureSketch
+from dragonfly2_tpu_torch.resilience import faultline
 from dragonfly2_tpu_torch.trainer import _msgpack
 
 # Bumped whenever the flax param-tree structure changes; loaders refuse
@@ -62,11 +56,15 @@ def artifact_digest(directory: str | Path) -> str:
     """Content digest of a whole artifact directory: sha256 over every
     regular file (sorted relative path + contents, length-framed so file
     boundaries can't alias). The JAX package's digest of the same directory
-    is the same string."""
+    is the same string. Injectable: each file's bytes pass the faultline
+    ``model.load`` mutate point before hashing, so a chaos run can corrupt
+    a load in flight."""
     d = Path(directory)
     h = hashlib.sha256()
     for f in sorted(p for p in d.rglob("*") if p.is_file()):
         data = f.read_bytes()
+        if faultline.ACTIVE is not None:
+            data = faultline.ACTIVE.mutate("model.load", data)
         rel = f.relative_to(d).as_posix().encode()
         h.update(len(rel).to_bytes(4, "big"))
         h.update(rel)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, serving, training, the trainer service, staging and an NCCL world of one on a card.
+"""The port's CUDA kernels, serving, training, the trainer service, staging, an NCCL world of one and the scoring stress on a card.
 
 Every test here is marked ``cuda`` and decides inside its fixture whether a
 card is present, skipping with a reason on a host without one. The file
@@ -8,6 +8,7 @@ a card and no JAX (the JAX test bootstrap in conftest.py is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import argparse
 import asyncio
 import json
 import pathlib
@@ -16,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from dragonfly2_tpu_torch.cli import dfstress
 from dragonfly2_tpu_torch.models import GNNScorer, TopoScorer, init_flax_like, params_from_flax
 from dragonfly2_tpu_torch.ops import neighbor_agg, neighbor_agg_cuda
 from dragonfly2_tpu_torch.parallel import distributed as dist_lib
+from dragonfly2_tpu_torch.scheduler import manager_link
 from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
 from dragonfly2_tpu_torch.tpuvm import staging
 from dragonfly2_tpu_torch.trainer import artifacts, dataset, synthetic, train_gnn, train_mlp
@@ -326,3 +329,27 @@ def test_world_of_one_under_nccl_in_a_subprocess(card):
     losses = json.loads(next(line for line in lines if line.startswith("MP_LOSSES "))[len("MP_LOSSES "):])
     assert len(losses) == 10 and all(np.isfinite(v) for v in losses)
     assert np.mean(losses[-3:]) < np.mean(losses[:3]) * 0.5, losses
+
+
+def test_scoring_artifact_built_on_card_serves_both_engines(card, tmp_path, monkeypatch):
+    path, digest, hosts, pair_feats = dfstress.build_scoring_artifact(tmp_path / "a", n_nodes=256)  # the card
+    feats, child, parent = dfstress.stress_rounds(hosts, pair_feats, hosts=64, concurrency=4, candidates=40)
+    monkeypatch.setenv("DRAGONFLY_NATIVE_SCORER", "1")
+    native, _ = manager_link.load_scorer_verified(str(path), digest)
+    monkeypatch.setenv("DRAGONFLY_NATIVE_SCORER", "0")
+    on_card, _ = manager_link.load_scorer_verified(str(path), digest)
+    assert native.engine == "native" and on_card.engine == "torch" and on_card.device.type == "cuda"
+    a = native.score_rounds(feats, child=child, parent=parent)
+    b = on_card.score_rounds(feats, child=child, parent=parent)
+    native.close()
+    assert np.all((b > 0) & (b < 1)) and np.abs(a - b).max() <= 5e-3
+
+
+@pytest.mark.parametrize("engine", ["native", "torch"])
+def test_short_scoring_stress_on_card(card, engine, monkeypatch):
+    monkeypatch.setenv("DRAGONFLY_NATIVE_SCORER", "1" if engine == "native" else "0")
+    ns = argparse.Namespace(rounds=200, concurrency=4, candidates=40, hosts=64, device=None)
+    ex = asyncio.run(dfstress.run_scoring_stress(ns))["extra"]
+    assert ex["engine"] == engine
+    assert (ex["device"] == "cpu") if engine == "native" else ex["device"].startswith("cuda")
+    assert ex["rounds_per_sec_workers2"] > 0 and 0 < ex["native_flushes"] < ex["native_rounds"]
