@@ -94,7 +94,48 @@ Phases, each of which must hold or the run exits non-zero at once:
              card's engine each window is traced with torch.profiler too,
              and the union of its kernel, copy and set spans over the
              untraced window's time gives the card's busy share.
-10. kernels  each kernel against its plain PyTorch version on the card, at the
+10. evaluator the port's evaluator (scheduler/evaluator.MLEvaluator, the one a
+             reference scheduler loads through its plugin slot) at the stress
+             phase's size: build_scoring_artifact on the card (1024 hosts,
+             K=16, hidden 256, embed 128, 3 layers, seed 7), loaded by
+             load_scorer_verified as the native C++ scorer and, with
+             DRAGONFLY_NATIVE_SCORER=0, as GNNScorer on the card, each attached
+             in turn to one MLEvaluator with a MicroBatchScorer. The card has no
+             scheduler to hold peers, so the evaluator's feature_builder is set
+             on the instance to return each round's rows, drawn from the
+             artifact's pair features as stress_rounds draws them, for child and
+             parent records that carry only .host.id; the feature build itself
+             is held bit-equal to the reference's in tier-1
+             (tests/test_torch_evaluator.py), not here. ML_SERVING_MODE must read
+             the serving engine alone; evaluate() on one round must equal the
+             scorer's score() bit for bit; legs of 2,000 rounds of 40 from 8
+             concurrent drivers (cut as the stress phase's legs are: the CLI's
+             default is 20,000), three times in turn through the bundle's bare
+             MicroBatchScorer and through evaluate_async, must equal score() bit
+             for bit on the native engine and within 5e-3 on the card; the
+             engines agree within 5e-3; no round falls back to base, but one
+             with an unknown child host does, counted as unknown_hosts;
+             swap_bundle back to the first bundle serves the native scores
+             again. Rounds/s (medians), p50/p99 and the µs a round the evaluator
+             adds: the difference of the two legs' median round times.
+11. swarm    the port's dfstress --swarm against two reference schedulers in
+             child processes (python -m dragonfly2_tpu.scheduler.server --port 0,
+             each bound to a port of its own choosing that its READY line names,
+             --evaluator
+             plugin:dragonfly2_tpu_torch.scheduler.evaluator:MLEvaluator, in base
+             mode: no model is attached), each of which must print
+             SCHEDULER_READY within 60 s and is killed when the phase ends,
+             whatever happens. This script still imports nothing of the JAX
+             package: it runs the reference scheduler as a deployment runs it,
+             a separate process, as the port's tests pair the port with the
+             reference over the wire. run_swarm at the CLI's defaults (200 peers,
+             32 tasks, 8 pieces, a probe every 5 cycles) over both addresses, cut
+             from 10 s to 5 s: no errors, rounds served, each scheduler's share of
+             the rounds within 0.15 of the share the ring gives it of the 32 task
+             ids, and each scheduler's log holding the port evaluator's
+             serving-mode line (mode base). Rounds/s, p50/p99, the shares and the
+             host CPU.
+12. kernels  each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
@@ -124,6 +165,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -141,12 +183,16 @@ from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import (
 )
 from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.cli import dfstress
+from dragonfly2_tpu_torch.models.features import BASE_WEIGHTS
 from dragonfly2_tpu_torch.models.weights import full_state_dict
 from dragonfly2_tpu_torch.parallel import distributed as dist_lib
 from dragonfly2_tpu_torch.parallel import mesh as meshlib
 from dragonfly2_tpu_torch.resilience import faultline
+from dragonfly2_tpu_torch.rpc.balancer import ConsistentHashRing
 from dragonfly2_tpu_torch.rpc.core import RpcServer
 from dragonfly2_tpu_torch.scheduler import manager_link
+from dragonfly2_tpu_torch.scheduler import metrics as sched_metrics
+from dragonfly2_tpu_torch.scheduler.evaluator import SERVING_MODES, MLEvaluator
 from dragonfly2_tpu_torch.scheduler.announcer import CHUNK_ROWS, TrainerAnnouncer
 from dragonfly2_tpu_torch.telemetry import TelemetryStorage
 from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
@@ -155,6 +201,7 @@ from dragonfly2_tpu_torch.trainer import artifacts, dataset, train_gnn, train_ml
 from dragonfly2_tpu_torch.trainer.server import start_trainer, stop_trainer
 from dragonfly2_tpu_torch.trainer.service import TrainerConfig, TrainerService, pack_records
 from dragonfly2_tpu_torch.trainer.synthetic import make_cluster, sample_batch, synth_telemetry_records
+from dragonfly2_tpu_torch.utils import proc as proc_lib
 
 NUM_HOSTS, NUM_NEIGHBORS, GRAPH_SEED = 16384, 16, 7
 MODEL = dict(hidden=256, embed_dim=128, num_layers=3, head_hidden=256)
@@ -193,6 +240,16 @@ STRESS_ROUNDS, STRESS_HOSTS, STRESS_CANDIDATES, STRESS_CONCURRENCY = 2000, 256, 
 # Rounds of each torch worker leg (at 1.4-1.6 ms a round), and score() calls
 # in each window of the busy-share measurement.
 STRESS_TORCH_WORKER_ROUNDS, BUSY_ROUNDS = 400, 300
+# the evaluator phase: the stress phase's rounds, concurrency and leg length,
+# a bare MicroBatchScorer leg and an evaluate_async leg in turn, EVAL_REPS times
+EVAL_ROUNDS, EVAL_REPS = STRESS_ROUNDS, 3
+FALLBACK_REASONS = ("no_scorer", "unknown_hosts", "scorer_error", "degraded")
+# the swarm phase: two reference schedulers with the port's evaluator, the
+# CLI's defaults cut from 10 s to 5 s, each scheduler's round share held to
+# the ring's placement of the task ids
+SWARM_SPEC = "plugin:dragonfly2_tpu_torch.scheduler.evaluator:MLEvaluator"
+SWARM_SCHEDULERS, SWARM_BOOT_S, SWARM_DURATION_S, SWARM_TASKS, SWARM_SHARE_TOL = 2, 60.0, 5.0, 32, 0.15
+REPO = pathlib.Path(__file__).resolve().parent
 # tests/test_ops.py's own tolerances for the Pallas kernel against XLA
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 EMBED_MIN_COSINE, SCORE_MAX_ABS = 0.999, 5e-3
@@ -1073,6 +1130,203 @@ def stress() -> dict:
     return numbers
 
 
+def _record(host_id: str):
+    """A child or parent record: with the rows precomputed the evaluator
+    reads only .host.id."""
+    return types.SimpleNamespace(host=types.SimpleNamespace(id=host_id))
+
+
+def serving_gauges() -> dict:
+    return {m: sched_metrics.ML_SERVING_MODE.labels(mode=m).value for m in SERVING_MODES}
+
+
+def fallbacks() -> dict:
+    return {r: sched_metrics.ML_BASE_FALLBACK_TOTAL.labels(reason=r).value for r in FALLBACK_REASONS}
+
+
+def evaluator_legs(ev: MLEvaluator, rounds: list, feats: np.ndarray, child: np.ndarray, parent: np.ndarray,
+                   want: np.ndarray, tol: float) -> dict:
+    """EVAL_REPS repetitions of two legs of EVAL_ROUNDS rounds each, in turn,
+    from STRESS_CONCURRENCY drivers cycling over the fixed rounds: ``bare``
+    scores the rows through the serving bundle's MicroBatchScorer itself,
+    ``evaluator`` goes through ev.evaluate_async, which coalesces in that
+    same MicroBatchScorer; both after one warm pass. The medians of each
+    leg's rounds/s, the evaluator leg's per-round ms pooled over its
+    repetitions, the µs a round the evaluator adds (the difference of the
+    medians' round times, both taken in the same stretch of the run) and
+    the largest gap of either leg to ``want``, which must be within ``tol``."""
+    mb = ev.serving_bundle.microbatch
+    legs = {
+        "bare": lambda r: mb.score(feats[r], child=child[r], parent=parent[r]),
+        "evaluator": lambda r: ev.evaluate_async(*rounds[r]),
+    }
+
+    async def measure(fn):
+        done, lat, gap = 0, [], 0.0
+
+        async def driver():
+            nonlocal done, gap
+            while done < EVAL_ROUNDS:
+                r = done % len(rounds)
+                done += 1
+                t1 = time.perf_counter()
+                out = await fn(r)
+                lat.append(time.perf_counter() - t1)
+                gap = max(gap, float(np.abs(out - want[r]).max()))
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(driver() for _ in range(STRESS_CONCURRENCY)))
+        return EVAL_ROUNDS / (time.perf_counter() - t0), np.array(lat) * 1e3, gap
+
+    async def drive():
+        for fn in legs.values():  # warm: the flusher, the card
+            await asyncio.gather(*(fn(r) for r in range(len(rounds))))
+        out = {name: [] for name in legs}
+        for _rep in range(EVAL_REPS):
+            for name, fn in legs.items():
+                out[name].append(await measure(fn))
+        return out
+
+    runs = asyncio.run(drive())
+    gap = max(g for rs in runs.values() for _rps, _ms, g in rs)
+    if gap > tol:
+        raise AssertionError(f"rounds part from score() by {gap} > {tol}")
+    med = {name: float(np.median([rps for rps, _ms, _g in rs])) for name, rs in runs.items()}
+    ms = np.concatenate([m for _rps, m, _g in runs["evaluator"]])
+    return {"rounds_per_s": med["evaluator"], "bare_rounds_per_s": med["bare"],
+            "rates": {name: [rps for rps, _ms, _g in rs] for name, rs in runs.items()},
+            "evaluator_us_per_round": 1e6 / med["evaluator"] - 1e6 / med["bare"],
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "max_abs_to_score": gap}
+
+
+def evaluator() -> dict:
+    """The port's MLEvaluator serving the native scorer, then GNNScorer on
+    the card, then the native bundle again; the rows of each round are
+    precomputed (see the module docstring)."""
+    t_phase = time.perf_counter()
+    ev = MLEvaluator()
+    if serving_gauges() != {m: float(m == "base") for m in SERVING_MODES}:
+        raise AssertionError(f"a new MLEvaluator serves {serving_gauges()}, not base")
+    with tempfile.TemporaryDirectory() as tmp:
+        path, digest, hosts, pair_feats = dfstress.build_scoring_artifact(pathlib.Path(tmp) / "gnn-stress")
+        native, idx, native_load_s = timed_load(str(path), digest, native=True)
+        torch_scorer, torch_idx, torch_load_s = timed_load(str(path), digest, native=False)
+    if native.engine != "native" or torch_scorer.engine != "torch" or torch_scorer.device.type != "cuda":
+        raise AssertionError(f"the loader served {native.engine!r} and {torch_scorer.engine!r} on "
+                             f"{torch_scorer.device}, not native and torch on the card")
+    feats, child, parent = dfstress.stress_rounds(
+        hosts, pair_feats, hosts=STRESS_HOSTS, concurrency=STRESS_CONCURRENCY, candidates=STRESS_CANDIDATES)
+    name = {v: k for k, v in idx.items()}
+    rounds = [(_record(name[int(child[r, 0])]), [_record(name[int(p)]) for p in parent[r]])
+              for r in range(len(feats))]
+    rows = {id(kid): feats[r] for r, (kid, _ps) in enumerate(rounds)}
+    ev.feature_builder = lambda kid, parents, topology, bandwidth: rows[id(kid)]
+    before = fallbacks()
+    legs, scores, bundles = {}, {}, {}
+    for engine, scorer, index, tol in (("native", native, idx, 0.0), ("torch", torch_scorer, torch_idx, SCORE_MAX_ABS)):
+        prev = ev.attach_scorer(scorer, index, microbatch=MicroBatchScorer(scorer), version=f"stress-7-{engine}")
+        bundles[engine] = ev.serving_bundle
+        if (prev is None) != (engine == "native") or serving_gauges() != {m: float(m == engine) for m in
+                                                                           SERVING_MODES}:
+            raise AssertionError(f"attaching the {engine} scorer: previous bundle {prev}, gauges {serving_gauges()}")
+        want = np.stack([scorer.score(feats[r], child=child[r], parent=parent[r])  # dflint: disable=DF033 one call a round is the reference
+                         for r in range(len(feats))])
+        one = ev.evaluate(*rounds[0])
+        if one.tobytes() != want[0].astype(np.float32).tobytes():
+            raise AssertionError(f"{engine}: evaluate() is not score() bit for bit "
+                                 f"(max abs {float(np.abs(one - want[0]).max())})")
+        legs[engine] = evaluator_legs(ev, rounds, feats, child, parent, want, tol)
+        legs[engine]["flushes"] = ev.serving_bundle.microbatch.flushes
+        scores[engine] = want
+    gap = float(np.abs(scores["native"] - scores["torch"]).max())
+    if gap > SCORE_MAX_ABS:
+        raise AssertionError(f"the engines part by {gap} > {SCORE_MAX_ABS} through the evaluator")
+    if fallbacks() != before:
+        raise AssertionError(f"rounds fell back to base: {before} -> {fallbacks()}")
+    unknown = (_record("no-such-host"), rounds[0][1])
+    rows[id(unknown[0])] = feats[0]
+    out = ev.evaluate(*unknown)
+    after = fallbacks()
+    if (after["unknown_hosts"] != before["unknown_hosts"] + 1 or out.tobytes()
+            != (feats[0] @ BASE_WEIGHTS).astype(np.float32).tobytes()):
+        raise AssertionError(f"an unknown child host did not fall back to base as unknown_hosts: {after}")
+    torch_bundle = ev.swap_bundle(bundles["native"])
+    if (torch_bundle is not bundles["torch"] or ev.serving_version != "stress-7-native"
+            or serving_gauges() != {m: float(m == "native") for m in SERVING_MODES}
+            or ev.evaluate(*rounds[1]).tobytes() != scores["native"][1].astype(np.float32).tobytes()):
+        raise AssertionError(f"swap_bundle back to the native bundle: {ev.serving_version}, {serving_gauges()}")
+    ev.swap_bundle(None)
+    native.close()
+    numbers = {
+        "nodes": len(hosts), "candidates": feats.shape[1], "concurrency": STRESS_CONCURRENCY,
+        "rounds_a_leg": EVAL_ROUNDS, "reps": EVAL_REPS, "legs": legs, "engine_max_abs": gap,
+        "native_load_verify_s": native_load_s, "torch_load_verify_s": torch_load_s,
+        "host_cpu": host_cpu(), "wall_s": time.perf_counter() - t_phase,
+    }
+    for e, leg in legs.items():
+        print(f"  {e}: {leg['rounds_per_s']:.1f} rounds/s through evaluate_async (median of {EVAL_REPS}), p50/p99 "
+              f"{leg['p50_ms']:.3f}/{leg['p99_ms']:.3f} ms, max abs to score() {leg['max_abs_to_score']:.3g}; "
+              f"the bare MicroBatchScorer between them {leg['bare_rounds_per_s']:.1f} rounds/s, so the evaluator "
+              f"adds {leg['evaluator_us_per_round']:.1f} us a round")
+    print(f"  engines part by {gap:.3g}; unknown child host -> base (unknown_hosts); swap back serves native; "
+          f"host {numbers['host_cpu']}; phase {numbers['wall_s']:.1f} s")
+    return numbers
+
+
+def swarm() -> dict:
+    """The port's run_swarm over two reference scheduler processes whose
+    evaluator is the port's."""
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(REPO), "JAX_PLATFORMS": "cpu"}
+    procs, logs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            deadline = time.monotonic() + SWARM_BOOT_S
+            for i in range(SWARM_SCHEDULERS):
+                logs.append(pathlib.Path(tmp) / f"scheduler-{i}.log")
+                with open(logs[-1], "w") as err:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "dragonfly2_tpu.scheduler.server", "--host", "127.0.0.1",
+                         "--port", "0", "--evaluator", SWARM_SPEC],
+                        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=err, text=True))
+            addrs = [proc_lib.ready_address(proc, "SCHEDULER_READY", deadline) for proc in procs]
+            boot_s = time.perf_counter() - t_phase
+            run = asyncio.run(dfstress.run_swarm(addrs, duration=SWARM_DURATION_S))
+        finally:
+            for proc in procs:
+                proc.terminate()
+            for proc in procs:
+                try:
+                    proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                proc.stdout.close()
+        texts = [log.read_text() for log in logs]
+    ex = run["extra"]
+    ring = ConsistentHashRing(addrs)
+    owned = [ring.pick(f"swarm-task-{j:04d}") for j in range(SWARM_TASKS)]
+    predicted = {a: owned.count(a) / SWARM_TASKS for a in addrs}
+    share = ex["per_scheduler_round_share"]
+    line = "WARNING dragonfly2_tpu_torch.scheduler.evaluator ml evaluator serving mode: base"
+    if ex["errors"] or not ex["rounds"] > 0:
+        raise AssertionError(f"the swarm: {ex['errors']} errors in {ex['rounds']} rounds")
+    if any(not 0 < share[a] or abs(share[a] - predicted[a]) > SWARM_SHARE_TOL for a in addrs):
+        raise AssertionError(f"round shares {share} against the ring's {predicted} (tolerance {SWARM_SHARE_TOL})")
+    if not all(line in text for text in texts):
+        raise AssertionError("a scheduler's log lacks the port evaluator's serving-mode line: "
+                             + " | ".join(text[-800:] for text in texts))
+    numbers = {"schedulers": addrs, "boot_s": boot_s, "run": run, "ring_share": predicted,
+               "host_cpu": host_cpu(), "wall_s": time.perf_counter() - t_phase}
+    print(f"  {run['value']} rounds/s over {len(addrs)} schedulers ({ex['peers']} peers, {ex['tasks']} tasks, "
+          f"{ex['pieces_per_round']} pieces, {ex['elapsed_s']} s), {ex['rounds']} rounds, {ex['errors']} errors; "
+          f"p50/p99 {ex['p50_ms']}/{ex['p99_ms']} ms; round shares {share} (ring {predicted}); rpc shares "
+          f"{ex['per_scheduler_rpc_share']}; both booted the port's evaluator in {boot_s:.1f} s; host "
+          f"{numbers['host_cpu']}; phase {numbers['wall_s']:.1f} s")
+    return numbers
+
+
 def edge_case_inputs() -> dict:
     """Named (h, neighbors, mask) CPU inputs that each kernel must get right."""
     rng = np.random.default_rng(0)
@@ -1406,6 +1660,25 @@ def main() -> int:
         if any(seen.values()):
             raise AssertionError(f"the stress path launched a kernel it does not call: {seen}")
         print(json.dumps({"stress": numbers, "card": card}))
+
+    with phase("evaluator"):
+        zero_counts()
+        numbers = evaluator()
+        # no kernel is on this path: the evaluator scores through the C++
+        # scorer or GNNScorer's plain ops
+        numbers["kernel_launches"] = seen = counts()
+        if any(seen.values()):
+            raise AssertionError(f"the evaluator path launched a kernel it does not call: {seen}")
+        print(json.dumps({"evaluator": numbers, "card": card}))
+
+    with phase("swarm"):
+        zero_counts()
+        numbers = swarm()
+        # no kernel is on this path: the swarm is the control plane over TCP
+        numbers["kernel_launches"] = seen = counts()
+        if any(seen.values()):
+            raise AssertionError(f"the swarm path launched a kernel it does not call: {seen}")
+        print(json.dumps({"swarm": numbers, "card": card}))
 
     with phase("kernels"):
         g = cluster.graph.to("cuda")

@@ -21,26 +21,35 @@ Layout:
   tpuvm/          safetensors reader/writer and checkpoint staging onto the
                   card or a mesh
   telemetry/      the download and probe record schemas and their stores
-  observability/  metric registry, span tracer, feature sketch
-  utils/          the injectable clock, the entry points' signal wait
+  observability/  metric registry, span tracer, feature sketch, drift
+                  detector
+  utils/          the injectable clock, the entry points' signal wait, the
+                  token bucket, plugin loading by import path
   native/         the micro-batching request front, the native C++ scorer
                   (csrc/scorer.cc) and its scorer.dfsc writer
-  rpc/            the JAX package's wire protocol (TCP or a unix socket),
-                  the trainer's RPC adapters, the manager client's
-                  trainer-side subset
+  rpc/            the JAX package's wire protocol (TCP or a unix socket)
+                  with its client's retries and breaker, the trainer's RPC
+                  adapters, the manager client's trainer-side subset, the
+                  scheduler client and its consistent-hash balancer
   scheduler/      the model loader a scheduler attaches artifacts through,
-                  the announcer that uploads telemetry to the trainer
-  resilience/     the seeded fault injection (faultline) on the port's
+                  the announcer that uploads telemetry to the trainer, the
+                  evaluator a reference scheduler loads as a plugin
+                  (plugin:dragonfly2_tpu_torch.scheduler.evaluator:MLEvaluator)
+  resilience/     backoff, circuit breaker, retry budget, deadlines, and
+                  the seeded fault injection (faultline) on the port's
                   artifact loads and RPC wire
   cli/            dfstress, the load generator (daemon downloads, the
-                  scoring stress over both engines), and its probe
+                  scoring stress over both engines, the scheduler swarm)
 
 Entry points run on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 __version__ = "0.1.0"
 
@@ -52,6 +61,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     default) and none is present — an entry point never carries on on the
     CPU that the caller did not ask for.
     """
+    import torch  # here, not at import: the package's torch-free modules stay so
+
     dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -22,8 +22,14 @@ drives 40-candidate rounds through three serving shapes (see
 ``run_scoring_stress``). Scoring runs on the card unless ``--device``
 names another; with no card and no ``--device`` it raises.
 
-Left out (the JAX package has it): ``--swarm`` and its flags, which need
-the scheduler client, balancer and breaker the port does not have yet.
+    python -m dragonfly2_tpu_torch.cli.dfstress --swarm --schedulers a:1,b:2
+
+drives N simulated peers (``--peers``, 200) through the full control-plane
+round against a federation of reference schedulers over the wire, through
+the port's ``BalancedSchedulerClient`` (a consistent-hash ring over
+``RemoteSchedulerClient``s, each with its own circuit breaker; see
+``run_swarm``). It runs no torch work and needs no device. Exit code 1 when
+any round failed.
 """
 
 from __future__ import annotations
@@ -44,7 +50,9 @@ import torch
 
 from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.native import MicroBatchScorer, ScorerHandlePool
+from dragonfly2_tpu_torch.rpc.balancer import BalancedSchedulerClient
 from dragonfly2_tpu_torch.rpc.core import RpcClient
+from dragonfly2_tpu_torch.rpc.scheduler import HostInfo, RemoteSchedulerClient, TaskMeta
 from dragonfly2_tpu_torch.scheduler import manager_link
 from dragonfly2_tpu_torch.trainer import artifacts, synthetic, train_gnn
 
@@ -374,6 +382,183 @@ async def run_scoring_stress(args: argparse.Namespace) -> dict:
     }
 
 
+_SWARM_RPC_VERBS = frozenset({
+    "register_peer", "report_task_metadata", "report_pieces",
+    "report_piece_result", "report_peer_result", "announce_task",
+    "announce_host", "sync_probes", "reschedule", "leave_peer", "leave_host",
+    "stat_task",
+})
+
+
+class _CountingSchedulerClient:
+    """RemoteSchedulerClient proxy counting RPCs per scheduler address — the
+    swarm's per-scheduler load-share measurement (`register_peer` counts
+    separately: one per round, so its share IS the ring's task placement)."""
+
+    def __init__(self, addr: str, counts: dict, round_counts: dict):
+        self._inner = RemoteSchedulerClient(addr)
+        self._addr = addr
+        self._counts = counts
+        self._round_counts = round_counts
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if name not in _SWARM_RPC_VERBS:
+            return attr
+
+        async def wrapped(*a, **k):
+            self._counts[self._addr] = self._counts.get(self._addr, 0) + 1
+            if name == "register_peer":
+                self._round_counts[self._addr] = self._round_counts.get(self._addr, 0) + 1
+            return await attr(*a, **k)
+
+        return wrapped
+
+
+async def run_swarm(
+    scheduler_addrs: list[str],
+    *,
+    peers: int = 200,
+    tasks: int = 32,
+    pieces: int = 8,
+    duration: float = 10.0,
+    probe_every: int = 5,
+    piece_size: int = 4 << 20,
+) -> dict:
+    """Swarm mode: N simulated lightweight peers driving the full
+    control-plane round over the REAL wire against a scheduler federation —
+    register → (seed: metadata + batched piece reports + result) or
+    (child: scheduled parents + batched piece reports + result) — plus
+    periodic probe syncs feeding the topology the federation gossips.
+
+    No data plane: the swarm measures what the ring + federation can
+    SCHEDULE, which is the control-plane scale story ("hundreds of peers per
+    scheduler pair"). Peer ids are stable per (peer, task) so the resource
+    pools stay bounded (re-registering a finished peer restarts it, the
+    same reuse shape `run_stress` relies on)."""
+    rpc_counts: dict[str, int] = {}
+    round_counts: dict[str, int] = {}
+    client = BalancedSchedulerClient(
+        scheduler_addrs,
+        client_factory=lambda a: _CountingSchedulerClient(a, rpc_counts, round_counts),
+    )
+    metas = [
+        TaskMeta(f"swarm-task-{j:04d}", f"http://origin/swarm-{j}.bin")
+        for j in range(tasks)
+    ]
+    content_length = pieces * piece_size
+    rounds = 0
+    errors = 0
+    latencies: list[float] = []
+    stop_at = time.monotonic() + duration
+
+    async def peer_loop(i: int) -> None:
+        nonlocal rounds, errors
+        host = HostInfo(
+            id=f"swarm-host-{i:04d}", ip=f"10.42.{i // 256}.{i % 256}",
+            hostname=f"swarm-{i}", download_port=18000 + (i % 40000),
+        )
+        try:
+            await client.announce_host(host)
+        except Exception:
+            errors += 1
+        cycle = 0
+        while time.monotonic() < stop_at:
+            meta = metas[(i + cycle) % len(metas)]
+            peer_id = f"swarm-p{i:04d}-{(i + cycle) % len(metas):04d}"
+            t0 = time.monotonic()
+            try:
+                reg = await client.register_peer(peer_id, meta, host)  # dflint: disable=DF025 load generator: one round per iteration IS the workload being measured
+                if reg.error:
+                    # a refused registration did no reporting work — it must
+                    # not count as a completed round (that would inflate
+                    # rounds/s exactly when the federation is overloaded)
+                    errors += 1
+                    cycle += 1
+                    continue
+                if reg.back_to_source:
+                    # first holder: publish metadata, then report the whole
+                    # task as one batched flush — the seed leg of the round
+                    await client.report_task_metadata(  # dflint: disable=DF025 load generator workload
+                        meta.task_id, content_length=content_length,
+                        piece_size=piece_size,
+                    )
+                    await client.report_pieces(  # dflint: disable=DF025 already the batched verb; one flush per round is the workload
+                        peer_id, [(k, 8.0, "") for k in range(pieces)]
+                    )
+                    await client.report_peer_result(  # dflint: disable=DF025 load generator workload
+                        peer_id, success=True, bandwidth_bps=2e8
+                    )
+                else:
+                    parent = reg.parents[0].peer_id if reg.parents else ""
+                    await client.report_pieces(  # dflint: disable=DF025 already the batched verb; one flush per round is the workload
+                        peer_id, [(k, 5.0, parent) for k in range(pieces)]
+                    )
+                    await client.report_peer_result(  # dflint: disable=DF025 load generator workload
+                        peer_id, success=True, bandwidth_bps=3e8
+                    )
+                if probe_every and cycle % probe_every == probe_every - 1:
+                    dst = f"swarm-host-{(i + 1) % peers:04d}"
+                    await client.sync_probes(  # dflint: disable=DF025 load generator workload: periodic probe round per peer
+                        host.id,
+                        [{"dst_host_id": dst, "rtt_ms": 1.0 + (i % 7), "success": True}],
+                    )
+                rounds += 1
+                latencies.append(time.monotonic() - t0)
+            except Exception:
+                errors += 1
+            cycle += 1
+
+    t0 = time.monotonic()
+    await asyncio.gather(*(peer_loop(i) for i in range(peers)))
+    elapsed = time.monotonic() - t0
+    await client.close()
+
+    total_rpcs = sum(rpc_counts.values()) or 1
+    total_rounds = sum(round_counts.values()) or 1
+    lat = np.asarray(latencies) * 1000.0
+    return {
+        "metric": "swarm_rounds_per_sec",
+        "value": round(rounds / max(elapsed, 1e-9), 1),
+        "unit": "rounds/s (full control-plane cycle per simulated peer)",
+        "extra": {
+            "schedulers": list(scheduler_addrs),
+            "peers": peers,
+            "tasks": tasks,
+            "pieces_per_round": pieces,
+            "rounds": rounds,
+            "errors": errors,
+            "elapsed_s": round(elapsed, 2),
+            "p50_ms": round(float(np.percentile(lat, 50)), 2) if len(lat) else None,
+            "p99_ms": round(float(np.percentile(lat, 99)), 2) if len(lat) else None,
+            # share of scheduling rounds (register_peer) per ring member —
+            # the consistent-hash placement balance — plus the all-RPC share
+            "per_scheduler_round_share": {
+                a: round(round_counts.get(a, 0) / total_rounds, 3)
+                for a in scheduler_addrs
+            },
+            "per_scheduler_rpc_share": {
+                a: round(rpc_counts.get(a, 0) / total_rpcs, 3)
+                for a in scheduler_addrs
+            },
+        },
+    }
+
+
+async def run_swarm_stress(args: argparse.Namespace) -> dict:
+    addrs = [a.strip() for a in args.schedulers.split(",") if a.strip()]
+    if not addrs:
+        raise SystemExit("--swarm requires --schedulers host:port[,host:port...]")
+    return await run_swarm(
+        addrs,
+        peers=args.peers,
+        tasks=args.tasks,
+        pieces=args.pieces,
+        duration=args.duration,
+        probe_every=args.probe_every,
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="dragonfly2_tpu daemon load generator (PyTorch port)")
     ap.add_argument("url", nargs="?", default=None,
@@ -393,6 +578,20 @@ def main(argv: list[str] | None = None) -> int:
                          "drives the traffic shaper's weighted fairness")
     ap.add_argument("--scoring", action="store_true",
                     help="stress the ml scoring serving path instead of downloads")
+    ap.add_argument("--swarm", action="store_true",
+                    help="simulated-peer swarm against a scheduler federation "
+                         "over the real wire (control plane only, no data plane; "
+                         "runs no torch work and needs no device)")
+    ap.add_argument("--schedulers", default="",
+                    help="scheduler addresses host:port[,host:port...] (--swarm)")
+    ap.add_argument("--peers", type=int, default=200,
+                    help="simulated peers in the swarm (--swarm)")
+    ap.add_argument("--tasks", type=int, default=32,
+                    help="distinct tasks the swarm cycles through (--swarm)")
+    ap.add_argument("--pieces", type=int, default=8,
+                    help="pieces reported per swarm round (--swarm)")
+    ap.add_argument("--probe-every", type=int, default=5,
+                    help="sync a probe round every N cycles per peer (--swarm)")
     ap.add_argument("--rounds", type=int, default=20000,
                     help="scoring rounds to drive (--scoring)")
     ap.add_argument("--worker-rounds", type=int, default=None,
@@ -409,6 +608,10 @@ def main(argv: list[str] | None = None) -> int:
         result = asyncio.run(run_scoring_stress(args))
         print(json.dumps(result), flush=True)
         return 0
+    if args.swarm:
+        result = asyncio.run(run_swarm_stress(args))
+        print(json.dumps(result), flush=True)
+        return 0 if result["extra"]["errors"] == 0 else 1
     if not args.url:
         ap.error("url is required unless --scoring")
     result = asyncio.run(run_stress(args))

@@ -47,13 +47,14 @@ class GNNScorer:
     round pays for the trip to the card is for measurement to decide.
     """
 
-    # The serving-mode label a scheduler reads. The JAX package's evaluator
-    # knows "native", "jax" and "base" only, so a scheduler serving this
-    # scorer sets all three of its ML_SERVING_MODE gauges to 0: an honest
-    # gap of that evaluator, not a label to dress up as "jax". A scheduler
-    # attaching through scheduler.manager_link serves the native C++ scorer
-    # ("native") whenever the artifact has a scorer.dfsc; this engine is
-    # its fallback.
+    # The serving-mode label a scheduler reads. The port's evaluator
+    # (scheduler/evaluator.py, loaded into a reference scheduler through its
+    # plugin slot) sets ML_SERVING_MODE{mode="torch"} for it; the JAX
+    # package's own evaluator knows "native", "jax" and "base" only and sets
+    # all three to 0, a gap of that evaluator, not a label to dress up as
+    # "jax". A scheduler attaching through scheduler.manager_link serves the
+    # native C++ scorer ("native") whenever the artifact has a scorer.dfsc;
+    # this engine is its fallback.
     engine = "torch"
 
     def __init__(self, model: TopoScorer, state_dict: Mapping[str, torch.Tensor],

@@ -1,9 +1,10 @@
 """Typed metrics with Prometheus text-format exposition.
 
-The port's own copy of the counter, gauge and registry of
+The port's own copy of the counter, gauge, histogram and registry of
 dragonfly2_tpu/observability/metrics.py: what the trainer's
-``dragonfly_train_*`` families need. Histograms and the HTTP handler are not
-copied; the port's services come with the wiring slice.
+``dragonfly_train_*`` families and the evaluator's ``dragonfly_scheduler_*``
+families need. The HTTP handler is not copied: the port serves no /metrics,
+and a reference scheduler's /metrics renders only the reference's registry.
 
 The reference exposes Prometheus counters/gauges/histograms per service on a
 dedicated metrics port (scheduler/metrics/metrics.go:46-179,
@@ -144,6 +145,65 @@ class Gauge(_Metric):
             yield f"{self.name}{_fmt_labels(self._labels_of(key))} {_fmt_value(child.value)}"  # type: ignore[attr-defined]
 
 
+_DEFAULT_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name: str, help_: str, label_names: Sequence[str], buckets: Sequence[float] = _DEFAULT_BUCKETS):
+        super().__init__(name, help_, label_names)
+        self.buckets = tuple(sorted(buckets))
+
+    def labels(self, **labels: str) -> "Histogram._Child":
+        key = self._key(labels)
+        child = self._children.get(key)
+        if child is None:
+            with self._lock:
+                child = self._children.setdefault(key, Histogram._Child(self.buckets))
+        return child  # type: ignore[return-value]
+
+    def observe(self, value: float, **labels: str) -> None:
+        self.labels(**labels).observe(value)
+
+    class _Child:
+        __slots__ = ("buckets", "counts", "total", "count", "_lock")
+
+        def __init__(self, buckets: tuple[float, ...]):
+            self.buckets = buckets
+            self.counts = [0] * len(buckets)
+            self.total = 0.0
+            self.count = 0
+            self._lock = threading.Lock()
+
+        def observe(self, value: float) -> None:
+            # sum, count and buckets move together under one lock, or a
+            # concurrent render sees a torn histogram
+            with self._lock:
+                self.total += value
+                self.count += 1
+                for i, b in enumerate(self.buckets):
+                    if value <= b:
+                        self.counts[i] += 1
+
+    def render(self) -> Iterable[str]:
+        yield f"# HELP {self.name} {self.help}"
+        yield f"# TYPE {self.name} histogram"
+        for key, child in self._snapshot_children():
+            base = self._labels_of(key)
+            with child._lock:  # type: ignore[attr-defined]
+                counts = list(child.counts)  # type: ignore[attr-defined]
+                count, total = child.count, child.total  # type: ignore[attr-defined]
+            for b, c in zip(child.buckets, counts):  # type: ignore[attr-defined]
+                yield f"{self.name}_bucket{_fmt_labels(dict(base, le=_fmt_value(b)))} {c}"
+            yield f"{self.name}_bucket{_fmt_labels(dict(base, le='+Inf'))} {count}"
+            yield f"{self.name}_sum{_fmt_labels(base)} {_fmt_value(total)}"
+            yield f"{self.name}_count{_fmt_labels(base)} {count}"
+
+
 class MetricsRegistry:
     """Named metric families for one service process."""
 
@@ -170,6 +230,12 @@ class MetricsRegistry:
 
     def gauge(self, name: str, help_: str = "", *, subsystem: str = "", labels: Sequence[str] = ()) -> Gauge:
         return self._register(Gauge(self._name(subsystem, name), help_, labels))  # type: ignore[return-value]
+
+    def histogram(
+        self, name: str, help_: str = "", *, subsystem: str = "", labels: Sequence[str] = (),
+        buckets: Sequence[float] = _DEFAULT_BUCKETS,
+    ) -> Histogram:
+        return self._register(Histogram(self._name(subsystem, name), help_, labels, buckets))  # type: ignore[return-value]
 
     def render_text(self) -> str:
         lines: list[str] = []

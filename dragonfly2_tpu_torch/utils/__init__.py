@@ -1,2 +1,3 @@
-"""Shared infrastructure of the port: the injectable clock and the
-service entry points' signal wait."""
+"""Shared infrastructure of the port: the injectable clock, the service
+entry points' signal wait, the token bucket and plugin loading by import
+path."""

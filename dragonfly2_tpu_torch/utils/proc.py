@@ -4,7 +4,10 @@ dragonfly2_tpu/utils/proc.py)."""
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import signal
+import subprocess
+import time
 from typing import Callable
 
 
@@ -26,3 +29,21 @@ async def run_until_signalled(
     if on_ready is not None:
         on_ready()
     await stop.wait()
+
+
+def ready_address(proc: subprocess.Popen, prefix: str, deadline: float) -> str:
+    """The address on a child service's ready line (``<prefix> <address>``,
+    the first line of its stdout, read as text). A child that prints none by
+    ``deadline`` (a ``time.monotonic()`` instant) is killed, which ends the
+    blocked read; one that prints another line did not start. Both raise
+    RuntimeError."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        line = pool.submit(proc.stdout.readline)
+        try:
+            line = line.result(timeout=max(0.1, deadline - time.monotonic()))
+        except concurrent.futures.TimeoutError:
+            proc.kill()
+            raise RuntimeError(f"no {prefix} line by the deadline") from None
+    if not line.startswith(prefix + " "):
+        raise RuntimeError(f"the service did not start: {line!r}, exit {proc.poll()}")
+    return line.split()[1]

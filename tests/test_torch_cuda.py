@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, serving, training, the trainer service, staging, an NCCL world of one and the scoring stress on a card.
+"""The port's CUDA kernels, serving, training, the trainer service, staging, an NCCL world of one, the scoring stress and the port's evaluator on a card.
 
 Every test here is marked ``cuda`` and decides inside its fixture whether a
 card is present, skipping with a reason on a host without one. The file
@@ -12,6 +12,7 @@ import argparse
 import asyncio
 import json
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -19,9 +20,12 @@ import torch
 
 from dragonfly2_tpu_torch.cli import dfstress
 from dragonfly2_tpu_torch.models import GNNScorer, TopoScorer, init_flax_like, params_from_flax
+from dragonfly2_tpu_torch.native import MicroBatchScorer
 from dragonfly2_tpu_torch.ops import neighbor_agg, neighbor_agg_cuda
 from dragonfly2_tpu_torch.parallel import distributed as dist_lib
+from dragonfly2_tpu_torch.scheduler import evaluator as port_evaluator
 from dragonfly2_tpu_torch.scheduler import manager_link
+from dragonfly2_tpu_torch.scheduler import metrics as sched_metrics
 from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
 from dragonfly2_tpu_torch.tpuvm import staging
 from dragonfly2_tpu_torch.trainer import artifacts, dataset, synthetic, train_gnn, train_mlp
@@ -353,3 +357,48 @@ def test_short_scoring_stress_on_card(card, engine, monkeypatch):
     assert ex["engine"] == engine
     assert (ex["device"] == "cpu") if engine == "native" else ex["device"].startswith("cuda")
     assert ex["rounds_per_sec_workers2"] > 0 and 0 < ex["native_flushes"] < ex["native_rounds"]
+
+
+def _record(host_id: str):
+    """A plain child or parent record: the evaluator reads only .host.id
+    once the feature rows come precomputed."""
+    return types.SimpleNamespace(host=types.SimpleNamespace(id=host_id))
+
+
+@pytest.mark.parametrize("engine", ["native", "torch"])
+def test_port_evaluator_serves_the_scorer_on_card(card, engine, tmp_path, monkeypatch):
+    """The port's MLEvaluator attached to what the loader returns (GNNScorer
+    on the card with DRAGONFLY_NATIVE_SCORER=0): ML_SERVING_MODE reads that
+    engine, evaluate() equals the scorer's score() bit for bit and
+    evaluate_async() through a MicroBatchScorer within 5e-3 (bit for bit
+    natively), with no base fallback."""
+    path, digest, hosts, pair_feats = dfstress.build_scoring_artifact(tmp_path / "a", n_nodes=256)  # the card
+    feats, child, parent = dfstress.stress_rounds(hosts, pair_feats, hosts=64, concurrency=4, candidates=40)
+    monkeypatch.setenv("DRAGONFLY_NATIVE_SCORER", "1" if engine == "native" else "0")
+    scorer, idx = manager_link.load_scorer_verified(str(path), digest)
+    assert scorer.engine == engine and (engine == "native" or scorer.device.type == "cuda")
+    ev = port_evaluator.MLEvaluator()
+    ev.attach_scorer(scorer, idx, microbatch=MicroBatchScorer(scorer), version="v1")
+    modes = {m: float(sched_metrics.ML_SERVING_MODE.labels(mode=m).value) for m in port_evaluator.SERVING_MODES}
+    assert modes == {m: float(m == engine) for m in modes}
+    name = {v: k for k, v in idx.items()}
+    rounds = [(_record(name[int(child[r, 0])]), [_record(name[int(p)]) for p in parent[r]]) for r in range(len(feats))]
+    rows = {id(kid): feats[r] for r, (kid, _ps) in enumerate(rounds)}
+    ev.feature_builder = lambda kid, parents, topology, bandwidth: rows[id(kid)]
+    fallbacks = sum(float(sched_metrics.ML_BASE_FALLBACK_TOTAL.labels(reason=r).value)
+                    for r in ("no_scorer", "unknown_hosts", "scorer_error", "degraded"))
+    want = np.stack([scorer.score(feats[r], child=child[r], parent=parent[r]) for r in range(len(feats))])
+    got = np.stack([ev.evaluate(kid, ps) for kid, ps in rounds])
+    assert got.tobytes() == want.astype(np.float32).tobytes()
+
+    async def drive():
+        return await asyncio.gather(*(ev.evaluate_async(kid, ps) for kid, ps in rounds))
+
+    coalesced = np.stack(asyncio.run(drive()))
+    gap = float(np.abs(coalesced - want).max())
+    assert gap == 0.0 if engine == "native" else gap <= 5e-3
+    assert ev.serving_bundle.microbatch.rounds == len(rounds)
+    assert sum(float(sched_metrics.ML_BASE_FALLBACK_TOTAL.labels(reason=r).value)
+               for r in ("no_scorer", "unknown_hosts", "scorer_error", "degraded")) == fallbacks
+    if engine == "native":
+        scorer.close()

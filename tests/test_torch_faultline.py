@@ -9,7 +9,8 @@ reads, so ``load_scorer_verified`` refuses the artifact as
 ``digest_mismatch``, and its ``error``/``drop`` fire before verification
 and classify as ``load_error``; ``rpc.read`` and ``rpc.write`` fail the
 port client's call as they fail the reference client's, and on a server's
-read and reply path as they do on the reference server's. The two
+read and reply path as they do on the reference server's, each client
+retrying with its defaults and meeting the fault as often. The two
 registries are separate: each test enables only the one it names, and
 every test leaves both disabled.
 """
@@ -22,10 +23,11 @@ import time
 import pytest
 import torch
 
+from dragonfly2_tpu.resilience import backoff as ref_backoff
 from dragonfly2_tpu.resilience import faultline as ref_faultline
 from dragonfly2_tpu.rpc import core as ref_core
 from dragonfly2_tpu_torch.cli.dfstress import build_scoring_artifact
-from dragonfly2_tpu_torch.resilience import faultline
+from dragonfly2_tpu_torch.resilience import backoff, faultline
 from dragonfly2_tpu_torch.rpc import core
 from dragonfly2_tpu_torch.scheduler import manager_link
 from dragonfly2_tpu_torch.trainer import artifacts
@@ -186,24 +188,28 @@ class _Echo:
 
 
 def _pair(port_client: bool, port_server: bool):
+    """A server of one package and a client factory of one package; both
+    clients keep their default retries, on one short fixed backoff."""
     server = (core.RpcServer if port_server else ref_core.RpcServer)(host="127.0.0.1", port=0)
     server.register_service(_Echo(), ["echo"])
-    make_client = (lambda a: core.RpcClient(a)) if port_client else (lambda a: ref_core.RpcClient(a, retries=0))
-    return server, make_client
+    cls, policy = (core.RpcClient, backoff.BackoffPolicy) if port_client else (ref_core.RpcClient,
+                                                                                ref_backoff.BackoffPolicy)
+    return server, lambda a: cls(a, backoff=policy(base=0.01, jitter=0.0))
 
 
 def _failure(port: bool, spec: str, *, faulted_client: bool) -> tuple:
     """What the first call on a new connection fails with when ``spec`` is
-    enabled in one package's registry, and the call after it is disabled.
-    ``faulted_client``: that package's client against its own server; else
-    that package's server against the other package's client."""
+    enabled in one package's registry, and the call after it is disabled,
+    with the number of faults injected (a client's retries meet the fault
+    again). ``faulted_client``: that package's client against its own
+    server; else that package's server against the other package's client."""
 
     async def body():
         server, make_client = _pair(port_client=port == faulted_client, port_server=port)
         await server.start()
         client = make_client(server.address)
         try:
-            (faultline if port else ref_faultline).enable(spec)
+            fl = (faultline if port else ref_faultline).enable(spec)
             try:
                 await client.call("echo", 1, timeout=0.5)
                 got = ("no error",)
@@ -214,7 +220,7 @@ def _failure(port: bool, spec: str, *, faulted_client: bool) -> tuple:
             faultline.disable()
             ref_faultline.disable()
             assert await client.call("echo", 2) == 2  # the client recovers
-            return got
+            return got + (fl.injected_total(spec.split(":")[0]),)
         finally:
             await client.close()
             await server.stop()
@@ -223,20 +229,23 @@ def _failure(port: bool, spec: str, *, faulted_client: bool) -> tuple:
 
 
 @pytest.mark.parametrize("spec,want", [
-    ("rpc.write:error:1.0", ("FaultError", "faultline: injected error at rpc.write")),
-    ("rpc.read:drop:1.0", ("ConnectionClosed", "unavailable")),
+    # the client meets the fault on its first attempt and on its 3 retries;
+    # a read fault fires on the server's read and on the client's, each attempt
+    ("rpc.write:error:1.0", ("FaultError", "faultline: injected error at rpc.write", 4)),
+    ("rpc.read:drop:1.0", ("ConnectionClosed", "unavailable", 8)),
 ])
 def test_rpc_faults_fail_the_port_client_as_the_reference_client(spec, want):
     assert _failure(True, spec, faulted_client=True) == _failure(False, spec, faulted_client=True) == want
 
 
 @pytest.mark.parametrize("spec,want", [
-    # a reply the server fails to write never comes: the caller's deadline
-    ("rpc.write:error:1.0", ("RpcError", "deadline_exceeded")),
-    ("rpc.write:drop:1.0", ("RpcError", "deadline_exceeded")),
-    # a failed read drops the connection
-    ("rpc.read:drop:1.0", ("ConnectionClosed", "unavailable")),
-    ("rpc.read:error:1.0", ("ConnectionClosed", "unavailable")),
+    # a reply the server fails to write never comes: the caller's deadline,
+    # which is not retried
+    ("rpc.write:error:1.0", ("RpcError", "deadline_exceeded", 1)),
+    ("rpc.write:drop:1.0", ("RpcError", "deadline_exceeded", 1)),
+    # a failed read drops the connection, on each of the client's 4 attempts
+    ("rpc.read:drop:1.0", ("ConnectionClosed", "unavailable", 4)),
+    ("rpc.read:error:1.0", ("ConnectionClosed", "unavailable", 4)),
 ])
 def test_rpc_faults_on_the_port_server_as_on_the_reference_server(spec, want):
     assert _failure(True, spec, faulted_client=False) == _failure(False, spec, faulted_client=False) == want

@@ -10,7 +10,8 @@ the digest was taken, ``load_error`` for a wrong format) match the
 reference's, and the drift sketch loads as the reference's does. Then the
 serving-mode label, against the reference evaluator: ``native`` reads 1 on
 the default path; on the torch fallback all three gauges read 0 and the
-round is still scored by the model, not by base.
+round is still scored by the model, not by base (the port's evaluator
+labels it ``torch``: tests/test_torch_wiring.py).
 """
 
 import asyncio
@@ -179,7 +180,12 @@ def _fallbacks() -> float:
 
 @pytest.mark.parametrize("engine", ["native", "torch"])
 def test_serving_mode_label_on_the_reference_evaluator(engine, trained, monkeypatch):
-    """The reference evaluator serving what the port's loader returns."""
+    """The reference evaluator serving what the port's loader returns. It
+    knows no "torch" mode, so on the torch engine its three gauges read 0
+    though the model scores the round: a gap of that evaluator, which stays
+    as it is. The port's own evaluator, loaded through the reference's
+    plugin slot, closes it (tests/test_torch_wiring.py
+    test_a_reference_scheduler_serves_the_port_evaluator)."""
     monkeypatch.setenv("DRAGONFLY_NATIVE_SCORER", "1" if engine == "native" else "0")
     scorer, idx = manager_link.load_scorer(trained["path"], device="cpu")
     assert scorer.engine == engine

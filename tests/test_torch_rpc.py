@@ -19,8 +19,13 @@ import torch
 
 from dragonfly2_tpu.manager.service import ManagerService
 from dragonfly2_tpu.observability.tracing import default_tracer as ref_tracer
+from dragonfly2_tpu.resilience import backoff as ref_backoff
+from dragonfly2_tpu.resilience import breaker as ref_breaker
+from dragonfly2_tpu.resilience import budget as ref_budget
+from dragonfly2_tpu.resilience import deadline as ref_deadline
 from dragonfly2_tpu.rpc import core as ref_core
 from dragonfly2_tpu.rpc.trainer import RemoteTrainerClient as RefTrainerClient
+from dragonfly2_tpu_torch.resilience import backoff, breaker, budget, deadline
 from dragonfly2_tpu_torch.rpc import core
 from dragonfly2_tpu_torch.rpc.trainer import TRAINER_METHODS, RemoteTrainerClient, register_trainer
 from dragonfly2_tpu_torch.trainer import _msgpack
@@ -158,26 +163,162 @@ def test_each_package_answers_the_others_client(direction):
     _run(body())
 
 
+def _client_of(port: bool):
+    """A client factory of one package, with a short fixed backoff."""
+    cls, policy = (core.RpcClient, backoff.BackoffPolicy) if port else (ref_core.RpcClient, ref_backoff.BackoffPolicy)
+    return lambda addr, **kw: cls(addr, **{"backoff": policy(base=0.01, jitter=0.0), **kw})
+
+
 def test_port_client_reconnects_and_fails_pending_calls_on_close():
-    async def body():
+    """close() fails the calls in flight with ConnectionClosed. A client
+    with retries takes that as a dropped connection and answers the call on
+    a new one, as the reference's client does on the same script; with
+    retries=0 the call raises. Either way the next call reconnects."""
+
+    async def script(make_client):
         server = core.RpcServer()
         server.register_service(_Echo(), METHODS)
         await server.start()
-        client = core.RpcClient(server.address)
+        outcomes = []
         try:
-            assert await client.call("echo", 1) == 1
-            pending = asyncio.ensure_future(client.call("slow", 5.0))
-            await asyncio.sleep(0.1)
-            await client.close()
-            with pytest.raises(core.ConnectionClosed):
-                await pending
-            assert await client.call("echo", 2) == 2  # a new connection
+            for retries in (0, 3):
+                client = make_client(server.address, retries=retries)
+                try:
+                    assert await client.call("echo", 1) == 1  # dflint: disable=DF025 one client per retry setting
+                    pending = asyncio.ensure_future(client.call("slow", 0.3))
+                    await asyncio.sleep(0.1)
+                    await client.close()
+                    try:
+                        outcomes.append(("ok", await pending))
+                    except (core.RpcError, ref_core.RpcError) as e:
+                        outcomes.append((type(e).__name__, e.code))
+                    assert await client.call("echo", 2) == 2  # dflint: disable=DF025 a new connection, one per client
+                finally:
+                    await client.close()
             await server.stop()
             assert not await client.healthy()
         finally:
             await client.close()
+        return outcomes
 
-    _run(body())
+    port, ref = _run(script(_client_of(True))), _run(script(_client_of(False)))
+    assert port == ref == [("ConnectionClosed", "unavailable"), ("ok", 0.3)]
+
+
+class _Scripted:
+    """Handlers that answer by a script; ``calls`` counts each one's calls."""
+
+    def __init__(self):
+        self.calls: dict[str, int] = {}
+
+    def _n(self, name: str) -> int:
+        self.calls[name] = self.calls.get(name, 0) + 1
+        return self.calls[name]
+
+    async def busy_then_ok(self, p):
+        if self._n("busy_then_ok") <= 2:
+            raise core.RpcError("busy", code="resource_exhausted")
+        return "ok"
+
+    async def always_busy(self, p):
+        self._n("always_busy")
+        raise core.RpcError("busy", code="resource_exhausted")
+
+    async def hint(self, p):
+        self._n("hint")
+        raise core.RpcError("overloaded", code="resource_exhausted", retry_after_s=5.0)
+
+    async def refuse(self, p):
+        self._n("refuse")
+        raise core.RpcError("no such peer", code="not_found")
+
+    async def slow(self, p):
+        self._n("slow")
+        await asyncio.sleep(p)
+        return p
+
+
+def test_retries_deadlines_and_hints_on_one_scripted_server_as_the_reference_client():
+    """One script on a port server per client package: retries on
+    resource_exhausted, no retry on other codes, a retry_after_s hint
+    pre-charging the retry budget, deadline_exceeded from the per-call
+    timeout and from a propagated deadline (the breaker charged only for a
+    silent full window), the server's QPS bucket, and the breaker opening
+    on refused connections. Both clients must see the same outcomes."""
+
+    async def script(port: bool):
+        make = _client_of(port)
+        budget_mod, dl_mod = (budget, deadline) if port else (ref_budget, ref_deadline)
+        handlers = _Scripted()
+        server = core.RpcServer()
+        server.register_service(handlers, ["busy_then_ok", "always_busy", "hint", "refuse", "slow"])
+        limited = core.RpcServer(qps_limit=2, qps_burst=1)
+        limited.register_service(_Echo(), METHODS)
+        await server.start()
+        await limited.start()
+        out = []
+
+        async def attempt(client, method, payload=None, **kw):
+            try:
+                got = ("ok", await client.call(method, payload, **kw))
+            except (core.RpcError, ref_core.RpcError) as e:
+                # the message up to the measured window or the last error
+                got = (type(e).__name__, e.code, str(e).split(" (last")[0].split(" after ")[0], e.retry_after_s)
+            except OSError as e:
+                got = (type(e).__name__,)
+            out.append((method, got, client.breaker.state, client.breaker.failures))
+
+        spent = budget_mod.RetryBudget("scheduler", rate=1.0, burst=5.0)
+        clients = [make(server.address), make(server.address, retries=2),
+                   make(server.address, retry_budget=spent)]
+        try:
+            c, c2, cb = clients
+            await attempt(c, "busy_then_ok")
+            await attempt(c2, "always_busy")
+            await attempt(c, "refuse")
+            await attempt(cb, "hint")
+            out.append(("budget", spent.charges, spent.spent, spent.denied))
+            await attempt(c, "slow", 1.0, timeout=0.2)  # silent for its whole window
+            with dl_mod.scope(0.2):
+                await attempt(c, "slow", 1.0, timeout=5.0)  # the caller's deadline cut it
+            with dl_mod.scope(0.0):
+                await attempt(c, "slow", 0.0)
+            await attempt(c, "slow", 0.0)
+            out.append(("calls", sorted(handlers.calls.items())))
+            lc = make(limited.address, retries=0)
+            clients.append(lc)
+            await attempt(lc, "echo", 1)
+            await attempt(lc, "echo", 2)  # past the burst: rate limited
+            lr = make(limited.address, retries=1, backoff=(backoff if port else ref_backoff).BackoffPolicy(
+                base=0.6, jitter=0.0))
+            clients.append(lr)
+            await attempt(lr, "echo", 3)  # limited once, then answered after the backoff
+            dead = make("127.0.0.1:1", retries=3, breaker=(breaker if port else ref_breaker).CircuitBreaker(
+                failure_threshold=2))
+            clients.append(dead)
+            await attempt(dead, "echo", 4)
+            await attempt(dead, "echo", 5)
+        finally:
+            for cl in clients:
+                await cl.close()
+            await server.stop()
+            await limited.stop()
+        return out
+
+    got, want = _run(script(True)), _run(script(False))
+    assert got == want
+    by = {(m, i): o for i, (m, *o) in enumerate(got)}
+    assert by[("busy_then_ok", 0)][0] == ("ok", "ok")
+    assert by[("always_busy", 1)][0][:2] == ("RpcError", "resource_exhausted")
+    assert by[("hint", 3)][0][:3] == ("RpcError", "unavailable", "hint: retry budget exhausted for scheduler")
+    assert got[4] == ("budget", 1, 0, 1)
+    assert [o[1][1] for o in got[5:8]] == ["deadline_exceeded"] * 3 and [o[3] for o in got[5:7]] == [1, 1]
+    assert got[9] == ("calls", [("always_busy", 3), ("busy_then_ok", 3), ("hint", 1), ("refuse", 1), ("slow", 3)])
+    assert got[11][1][:3] == ("RpcError", "resource_exhausted", "rate limited") and got[12][1] == ("ok", 3)
+    # two refused connections open the breaker; the third attempt, and the
+    # next call, are refused at the breaker without a connection
+    for o in got[13:15]:
+        assert o[1][:3] == ("RpcError", "unavailable", "circuit open to 127.0.0.1:1") and o[2:] == ("open", 2)
 
 
 def test_port_server_refuses_an_oversized_frame():

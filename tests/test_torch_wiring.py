@@ -10,13 +10,19 @@ place of its flax-bound static methods, as tests/test_rollout.py puts a
 fake loader in place) attaches the model, serves a round scored by it with
 ``ML_SERVING_MODE{mode="native"}`` at 1, and refuses a corrupt version as
 ``digest_mismatch``. Then the reference's own announcer uploads to the
-port's server, which trains again. Last, the entry point: ``python -m
-dragonfly2_tpu_torch.trainer.server --device cpu --port 0`` prints
-``TRAINER_READY`` and stops on SIGTERM.
+port's server, which trains again. A reference scheduler whose evaluator is
+the port's (the reference's plugin slot) serves a torch-trained model with
+the port's ``ML_SERVING_MODE`` at ``torch`` or ``native`` (its ManagerLink
+loading through the port's loader) or at ``jax`` (through the reference's
+own), its rounds ordered by the model's scores, through a swap and a
+rollback. Last, the
+entry point: ``python -m dragonfly2_tpu_torch.trainer.server --device cpu
+--port 0`` prints ``TRAINER_READY`` and stops on SIGTERM.
 """
 
 import asyncio
 import functools
+import logging
 import os
 import shutil
 import signal
@@ -36,16 +42,22 @@ from dragonfly2_tpu.scheduler import metrics as sched_metrics
 from dragonfly2_tpu.scheduler.announcer import TrainerAnnouncer as RefTrainerAnnouncer
 from dragonfly2_tpu.scheduler.evaluator import new_evaluator
 from dragonfly2_tpu.scheduler.manager_link import ManagerLink
+from dragonfly2_tpu.scheduler.service import HostInfo as RefHostInfo
 from dragonfly2_tpu.scheduler.service import SchedulerService
+from dragonfly2_tpu.scheduler.service import TaskMeta as RefTaskMeta
 from dragonfly2_tpu.telemetry import TelemetryStorage as RefTelemetryStorage
+from dragonfly2_tpu_torch.models.features import BASE_WEIGHTS
 from dragonfly2_tpu_torch.native import NativeScorer
 from dragonfly2_tpu_torch.observability.tracing import default_tracer
+from dragonfly2_tpu_torch.scheduler import evaluator as port_evaluator
 from dragonfly2_tpu_torch.scheduler import manager_link
+from dragonfly2_tpu_torch.scheduler import metrics as port_metrics
 from dragonfly2_tpu_torch.scheduler.announcer import CHUNK_ROWS, TrainerAnnouncer
 from dragonfly2_tpu_torch.telemetry import DOWNLOAD_DTYPE, ColumnarStore, TelemetryStorage
 from dragonfly2_tpu_torch.trainer import train_gnn, train_mlp
 from dragonfly2_tpu_torch.trainer.server import start_trainer, stop_trainer
-from dragonfly2_tpu_torch.trainer.service import TrainerConfig
+from dragonfly2_tpu_torch.trainer.service import TrainerConfig, TrainerService, pack_records
+from dragonfly2_tpu_torch.trainer.synthetic import synth_telemetry_records
 from test_scheduler import add_running_peer, make_pool_with_task
 
 # One intra-op thread: the suite runs six xdist workers on the host's cores
@@ -54,6 +66,7 @@ from test_scheduler import add_running_peer, make_pool_with_task
 torch.set_num_threads(1)
 
 DEADLINE_S = 120.0
+PORT_EVALUATOR_SPEC = "plugin:dragonfly2_tpu_torch.scheduler.evaluator:MLEvaluator"
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -190,6 +203,143 @@ def test_a_scheduler_attaches_a_torch_trained_model(tmp_path, monkeypatch):
                 await link.manager.close()
             await ann.stop()
             await stop_trainer(server, service)
+            await mc.close()
+            await manager.stop()
+            svc.close()
+
+    asyncio.run(asyncio.wait_for(body(), DEADLINE_S))
+
+
+@pytest.fixture(scope="module")
+def two_versions(tmp_path_factory):
+    """Two GNN artifacts, trained one after the other by the port's trainer
+    service on the CPU from two telemetry draws: [(version, path, digest)]."""
+    root = tmp_path_factory.mktemp("two")
+    cfg = TrainerConfig(
+        model_dir=str(root / "models"), device="cpu",
+        mlp=train_mlp.MLPTrainConfig(hidden=(32, 16), steps=10, batch_size=64),
+        gnn=train_gnn.GNNTrainConfig(hidden=32, embed_dim=16, num_layers=2, batch_size=64, warmup_steps=2),
+        gnn_steps=8, gnn_steps_per_call=4,
+    )
+
+    async def body():
+        svc = TrainerService(cfg)
+        out = []
+        for seed in (5, 6):
+            d, p = synth_telemetry_records(500, 300, 24, seed=seed)
+            token = (await svc.train_open({"hostname": "sch1"}))["token"]  # dflint: disable=DF025 one session per version
+            for kind, arr in (("downloads", d), ("probes", p)):
+                await svc.train_chunk({"token": token, "kind": kind, "data": pack_records(arr)})  # dflint: disable=DF025 one chunk per kind
+            await svc.train_close({"token": token})  # dflint: disable=DF025 one session per version
+            await svc.wait_idle()
+            res = svc.last_result
+            assert "gnn" in res, res
+            out.append((res["version"], res["gnn"]["artifact"], res["gnn"]["digest"]))
+        return out
+
+    out = asyncio.run(asyncio.wait_for(body(), DEADLINE_S))
+    assert out[0][0] != out[1][0]
+    return out
+
+
+def _port_gauges() -> dict:
+    return {m: _metric(port_metrics.ML_SERVING_MODE, mode=m) for m in port_evaluator.SERVING_MODES}
+
+
+def _serving(mode: str) -> dict:
+    return {m: float(m == mode) for m in port_evaluator.SERVING_MODES}
+
+
+def _port_fallbacks() -> float:
+    return sum(_metric(port_metrics.ML_BASE_FALLBACK_TOTAL, reason=r)
+               for r in ("no_scorer", "unknown_hosts", "scorer_error", "degraded"))
+
+
+@pytest.mark.parametrize("engine", ["native", "torch", "jax"])
+def test_a_reference_scheduler_serves_the_port_evaluator(engine, two_versions, tmp_path, monkeypatch, caplog):
+    """The fix for the reference evaluator's missing "torch" label: a
+    reference SchedulerService whose evaluator is the port's, loaded through
+    the reference's plugin slot, attaches a torch-trained artifact through
+    its ManagerLink. With the port's loader in the ManagerLink, the port's
+    ML_SERVING_MODE reads the engine that serves (torch with
+    DRAGONFLY_NATIVE_SCORER=0, else native) at 1 and the others at 0. With
+    the reference's own loader and DRAGONFLY_NATIVE_SCORER=0 ("jax"), the
+    reference's JAX GNNScorer serves: jax reads 1, with a warning that the
+    native scorer is not active. In each, register_peer returns the parents
+    in the order of the model's scores; a second publish swaps the bundle
+    and a rollback restores the first."""
+    monkeypatch.setenv("DRAGONFLY_NATIVE_SCORER", "1" if engine == "native" else "0")
+    if engine != "jax":
+        monkeypatch.setattr(ManagerLink, "_load_scorer_verified",
+                            staticmethod(functools.partial(manager_link.load_scorer_verified, device="cpu")))
+        monkeypatch.setattr(ManagerLink, "_classify_swap_error", staticmethod(manager_link.classify_swap_error))
+        monkeypatch.setattr(ManagerLink, "_install_drift_reference", staticmethod(_install_drift_reference))
+    (v1, path1, digest1), (v2, path2, digest2) = two_versions
+
+    async def body():
+        manager = ManagerServer(db_path=str(tmp_path / "m.db"))
+        await manager.start()
+        mc = RemoteManagerClient(manager.address)
+        svc = SchedulerService(evaluator=new_evaluator(PORT_EVALUATOR_SPEC), decision_sample_rate=1.0)
+        ev = svc.evaluator
+        link = None
+        try:
+            assert type(ev) is port_evaluator.MLEvaluator and _port_gauges() == _serving("base")
+            await mc.publish_model("gnn", v1, scheduler_id=0, artifact_path=path1, artifact_digest=digest1)
+            link = ManagerLink(svc, manager.address, hostname="sch-test", ip="127.0.0.1", port=1)
+            caplog.clear()
+            with caplog.at_level(logging.INFO, logger=port_evaluator.__name__):
+                await link._check_model()
+            first = ev.serving_bundle
+            assert ev.serving_version == v1 and first.scorer.engine == engine
+            assert _port_gauges() == _serving(engine)
+            (rec,) = [r for r in caplog.records if r.name == port_evaluator.__name__]
+            assert rec.levelname == ("WARNING" if engine == "jax" else "INFO"), rec.getMessage()
+            assert rec.getMessage().startswith(f"ml evaluator serving mode: {engine}")
+            assert ev.drift.reference_version == v1
+
+            # a task with five running parents on hosts the model knows
+            hosts = sorted(first.node_index)[:7]
+            task = svc.pool.load_or_create_task("t1", "http://origin/f")
+            task.set_metadata(100 << 20)
+            for i, h in enumerate(hosts[1:6]):
+                host = svc.pool.load_or_create_host(h, f"10.0.0.{i + 1}", f"host{i + 1}", download_port=8001 + i)
+                add_running_peer(svc.pool, task, host, pieces=2 + i).host.upload_limit = 1000
+            before = _port_fallbacks()
+            rounds0 = first.microbatch.rounds
+            child = RefHostInfo(id=hosts[0], ip="10.0.0.100", hostname="child", download_port=8100)
+            res1 = await svc.register_peer("child-peer", RefTaskMeta(task_id="t1", url="http://origin/f"), child)
+            assert res1.parents and not res1.back_to_source and first.microbatch.rounds == rounds0 + 1
+            (rec,) = [r for r in svc.decisions.snapshot(task_id="t1") if r["child_peer"] == "child-peer"]
+            assert rec["model_version"] == v1 and rec["serving_mode"] == engine
+            # the recorded round's scores are the model's, and the parents
+            # come back in their order
+            feats = np.asarray(rec["feats"], np.float32)
+            idx = first.node_index
+            c = np.full(len(feats), idx[hosts[0]], np.int32)
+            par = np.array([idx[p["host"]] for p in rec["parents"]], np.int32)
+            model = first.scorer.score(feats, child=c, parent=par)
+            np.testing.assert_allclose(rec["scores"], model, rtol=0, atol=0 if engine == "native" else 1e-6)
+            assert not np.allclose(rec["scores"], feats @ BASE_WEIGHTS)
+            assert [p.peer_id for p in res1.parents] == rec["chosen"]
+            order = np.argsort(-np.asarray(rec["scores"], np.float32), kind="stable")
+            assert rec["chosen"] == [rec["parents"][i]["peer"] for i in order[: len(rec["chosen"])]]
+            assert _port_fallbacks() == before
+
+            # a second publish swaps the bundle; a rollback restores the first
+            await mc.publish_model("gnn", v2, scheduler_id=0, artifact_path=path2, artifact_digest=digest2)
+            await link._check_model()
+            assert ev.serving_version == v2 and ev.serving_bundle is not first and link._warm_prev is first
+            assert _port_gauges() == _serving(engine)
+            await link._rollback(["a test rollback"])
+            assert ev.serving_version == v1 and ev.serving_bundle is first
+            assert _port_gauges() == _serving(engine)
+            res2 = await svc.register_peer("child-peer-2", RefTaskMeta(task_id="t1", url="http://origin/f"),
+                                           RefHostInfo(id=hosts[6], ip="10.0.0.101", hostname="child2"))
+            assert res2.parents and first.microbatch.rounds == rounds0 + 2 and _port_fallbacks() == before
+        finally:
+            if link is not None:
+                await link.manager.close()
             await mc.close()
             await manager.stop()
             svc.close()
