@@ -94,54 +94,81 @@ Phases, each of which must hold or the run exits non-zero at once:
              card's engine each window is traced with torch.profiler too,
              and the union of its kernel, copy and set spans over the
              untraced window's time gives the card's busy share.
-10. evaluator the port's evaluator (scheduler/evaluator.MLEvaluator, the one a
-             reference scheduler loads through its plugin slot) at the stress
-             phase's size: build_scoring_artifact on the card (1024 hosts,
-             K=16, hidden 256, embed 128, 3 layers, seed 7), loaded by
-             load_scorer_verified as the native C++ scorer and, with
+10. evaluator the port's evaluator (scheduler/evaluator.MLEvaluator) on its own
+             at the stress phase's size: build_scoring_artifact on the card
+             (1024 hosts, K=16, hidden 256, embed 128, 3 layers, seed 7), loaded
+             by load_scorer_verified as the native C++ scorer and, with
              DRAGONFLY_NATIVE_SCORER=0, as GNNScorer on the card, each attached
-             in turn to one MLEvaluator with a MicroBatchScorer. The card has no
-             scheduler to hold peers, so the evaluator's feature_builder is set
-             on the instance to return each round's rows, drawn from the
-             artifact's pair features as stress_rounds draws them, for child and
-             parent records that carry only .host.id; the feature build itself
-             is held bit-equal to the reference's in tier-1
-             (tests/test_torch_evaluator.py), not here. ML_SERVING_MODE must read
-             the serving engine alone; evaluate() on one round must equal the
-             scorer's score() bit for bit; legs of 2,000 rounds of 40 from 8
-             concurrent drivers (cut as the stress phase's legs are: the CLI's
-             default is 20,000), three times in turn through the bundle's bare
-             MicroBatchScorer and through evaluate_async, must equal score() bit
-             for bit on the native engine and within 5e-3 on the card; the
-             engines agree within 5e-3; no round falls back to base, but one
-             with an unknown child host does, counted as unknown_hosts;
-             swap_bundle back to the first bundle serves the native scores
-             again. Rounds/s (medians), p50/p99 and the µs a round the evaluator
-             adds: the difference of the two legs' median round times.
-11. swarm    the port's dfstress --swarm against two reference schedulers in
-             child processes (python -m dragonfly2_tpu.scheduler.server --port 0,
-             each bound to a port of its own choosing that its READY line names,
-             --evaluator
-             plugin:dragonfly2_tpu_torch.scheduler.evaluator:MLEvaluator, in base
-             mode: no model is attached), each of which must print
-             SCHEDULER_READY within 60 s and is killed when the phase ends,
-             whatever happens. This script still imports nothing of the JAX
-             package: it runs the reference scheduler as a deployment runs it,
-             a separate process, as the port's tests pair the port with the
-             reference over the wire. run_swarm at the CLI's defaults (200 peers,
-             32 tasks, 8 pieces, a probe every 5 cycles) over both addresses, cut
-             from 10 s to 5 s: no errors, rounds served, each scheduler's share of
-             the rounds within 0.15 of the share the ring gives it of the 32 task
-             ids, and each scheduler's log holding the port evaluator's
-             serving-mode line (mode base). Rounds/s, p50/p99, the shares and the
-             host CPU.
-12. kernels  each kernel against its plain PyTorch version on the card, at the
+             in turn to one MLEvaluator with a MicroBatchScorer. The rounds'
+             rows are precomputed here, set as the evaluator's feature_builder
+             on the instance (drawn from the artifact's pair features as
+             stress_rounds draws them, for child and parent records that carry
+             only .host.id), so that this phase times the evaluator against the
+             bare micro-batcher; the scheduler phase runs the feature build
+             live. ML_SERVING_MODE must read the serving engine alone;
+             evaluate() on one round must equal the scorer's score() bit for
+             bit; legs of 2,000 rounds of 40 from 8 concurrent drivers (cut as
+             the stress phase's legs are: the CLI's default is 20,000), three
+             times in turn through the bundle's bare MicroBatchScorer and
+             through evaluate_async, must equal score() bit for bit on the
+             native engine and within 5e-3 on the card; the engines agree
+             within 5e-3; no round falls back to base, but one with an unknown
+             child host does, counted as unknown_hosts; swap_bundle back to the
+             first bundle serves the native scores again. Rounds/s (medians),
+             p50/p99 and the µs a round the evaluator adds: the difference of
+             the two legs' median round times.
+11. scheduler the port's SchedulerService (scheduler/service.py) in process on
+             the card's host, at the GNN serving cell's cluster: 16384 hosts
+             announced (8 idcs, 64 seed hosts), each reporting 8 seeded probe
+             results through sync_probes. A wave is 256 tasks of 64 peers on
+             seeded hosts, from 32 concurrent drivers: the first peer of a task
+             goes back to source; every later registration is one scheduling
+             round of up to 40 candidates with the feature build live, then
+             its 16 pieces and its result in one report_batch. Not cut. In
+             order: a base wave (the MLEvaluator with no model, as a scheduler
+             boots: every round counted no_scorer) whose TelemetryStorage
+             collects the download and probe records; the loop in the port
+             alone: the port's TrainerAnnouncer uploads those records to the
+             port's trainer on the card (start_trainer, a manager stub, the
+             wiring phase's widths and cut), the published GNN artifact is
+             loaded by load_scorer_verified natively and, with
+             DRAGONFLY_NATIVE_SCORER=0, as GNNScorer on the card; then ML waves
+             on fresh task ids over the same hosts, each engine installed as a
+             scheduler's ManagerLink installs it (a MicroBatchScorer; a
+             ScorerHandlePool under the dispatcher): torch on the card with no
+             dispatcher and with dispatch_workers=2, native with none, native
+             with 2 (the native round driver) and native with 2 and
+             enable_native_mirror(). Every registration after a task's first
+             must get parents; no ML round falls back to base but by reason
+             unknown_hosts; the native waves with workers must drive rounds
+             natively, the mirror wave through the mirror; each torch wave's
+             decision records, rescored by the native scorer on the same rows,
+             agree within 5e-3. Per wave: rounds/s, register-to-parents
+             p50/p99 (host clock), µs a round in the feature build (_prepare
+             and the row export, timed by wrapping both), fallbacks by reason,
+             native and mirror rounds; upload, train-to-published, load and
+             attach seconds; and the card's busy share over a traced torch
+             wave of 32 tasks (the union of its kernel, copy and set spans).
+12. swarm    the port's dfstress --swarm against two of the port's scheduler
+             processes (python -m dragonfly2_tpu_torch.scheduler.server --port
+             0 --evaluator ml, each bound to a port of its own choosing that
+             its READY line names, in base mode: no model is attached), each of
+             which must print SCHEDULER_READY within 60 s and is killed when
+             the phase ends, whatever happens. run_swarm at the CLI's defaults
+             (200 peers, 32 tasks, 8 pieces, a probe every 5 cycles) over both
+             addresses, cut from 10 s to 5 s: no errors, rounds served, each
+             scheduler's share of the rounds within 0.15 of the share the ring
+             gives it of the 32 task ids, and each scheduler's log holding the
+             port evaluator's serving-mode line (mode base). Rounds/s,
+             p50/p99, the shares and the host CPU.
+13. kernels  each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
              timed with its transposed index built beforehand; the index
              build is timed on its own.
 
+This script imports and launches nothing of the JAX package.
 Launch counts are set to 0 just before each main path and read just after.
 Prints a ``{"kernels": [...]}`` line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -164,6 +191,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -172,7 +200,7 @@ import torch
 import torch.nn.functional as F
 
 from dragonfly2_tpu_torch.models import GNNScorer, TopoScorer, init_flax_like, params_from_flax
-from dragonfly2_tpu_torch.native import MicroBatchScorer
+from dragonfly2_tpu_torch.native import MicroBatchScorer, ScorerHandlePool
 from dragonfly2_tpu_torch.ops import _build, neighbor_agg_cuda, neighbor_aggregate
 from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import (
     neighbor_aggregate_bwd_cuda,
@@ -190,10 +218,11 @@ from dragonfly2_tpu_torch.parallel import mesh as meshlib
 from dragonfly2_tpu_torch.resilience import faultline
 from dragonfly2_tpu_torch.rpc.balancer import ConsistentHashRing
 from dragonfly2_tpu_torch.rpc.core import RpcServer
-from dragonfly2_tpu_torch.scheduler import manager_link
+from dragonfly2_tpu_torch.scheduler import manager_link, scheduling
 from dragonfly2_tpu_torch.scheduler import metrics as sched_metrics
 from dragonfly2_tpu_torch.scheduler.evaluator import SERVING_MODES, MLEvaluator
 from dragonfly2_tpu_torch.scheduler.announcer import CHUNK_ROWS, TrainerAnnouncer
+from dragonfly2_tpu_torch.scheduler.service import HostInfo, SchedulerService, TaskMeta
 from dragonfly2_tpu_torch.telemetry import TelemetryStorage
 from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
 from dragonfly2_tpu_torch.tpuvm import staging
@@ -244,10 +273,17 @@ STRESS_TORCH_WORKER_ROUNDS, BUSY_ROUNDS = 400, 300
 # a bare MicroBatchScorer leg and an evaluate_async leg in turn, EVAL_REPS times
 EVAL_ROUNDS, EVAL_REPS = STRESS_ROUNDS, 3
 FALLBACK_REASONS = ("no_scorer", "unknown_hosts", "scorer_error", "degraded")
-# the swarm phase: two reference schedulers with the port's evaluator, the
-# CLI's defaults cut from 10 s to 5 s, each scheduler's round share held to
-# the ring's placement of the task ids
-SWARM_SPEC = "plugin:dragonfly2_tpu_torch.scheduler.evaluator:MLEvaluator"
+# the scheduler phase: the port's SchedulerService at the GNN serving cell's
+# cluster, each host reporting SCHED_PROBES seeded probes; a wave is
+# SCHED_TASKS tasks of SCHED_PEERS peers (one scheduling round of up to 40
+# candidates a registration after the first) of SCHED_PIECES 4 MiB pieces,
+# from SCHED_DRIVERS concurrent drivers; the busy share over a traced torch
+# wave of SCHED_TRACED_TASKS tasks
+SCHED_HOSTS, SCHED_TASKS, SCHED_PEERS, SCHED_PROBES, SCHED_PIECES = NUM_HOSTS, 256, 64, 8, 16
+SCHED_DRIVERS, SCHED_SEED, SCHED_TRACED_TASKS = 32, 31, 32
+# the swarm phase: two of the port's scheduler processes, the CLI's defaults
+# cut from 10 s to 5 s, each scheduler's round share held to the ring's
+# placement of the task ids
 SWARM_SCHEDULERS, SWARM_BOOT_S, SWARM_DURATION_S, SWARM_TASKS, SWARM_SHARE_TOL = 2, 60.0, 5.0, 32, 0.15
 REPO = pathlib.Path(__file__).resolve().parent
 # tests/test_ops.py's own tolerances for the Pallas kernel against XLA
@@ -855,10 +891,11 @@ def timed_load(path: str, digest: str, native: bool) -> tuple:
             os.environ["DRAGONFLY_NATIVE_SCORER"] = old
 
 
-async def wiring_loop(tmp: pathlib.Path, downloads: np.ndarray, probes: np.ndarray) -> dict:
+async def wiring_loop(tmp: pathlib.Path, store: TelemetryStorage, hostname: str) -> dict:
     """Records in a port TelemetryStorage → the port's announcer → the port's
     trainer server on the card (TCP) → both models published to a manager
     stub; returns the published rows and the host seconds of each step."""
+    downloads, probes = len(store.downloads), len(store.probes)
     published: dict[str, dict] = {}
     both_at = []
 
@@ -873,14 +910,8 @@ async def wiring_loop(tmp: pathlib.Path, downloads: np.ndarray, probes: np.ndarr
     await stub.start()
     cfg = TrainerConfig(model_dir=str(tmp / "models"), gnn_steps=INGEST_GNN_STEPS, gnn_steps_per_call=10)
     server, service = await start_trainer(cfg, port=0, manager_addr=stub.address)
-    store = TelemetryStorage(tmp / "telemetry")
-    ann = TrainerAnnouncer(store, server.address, hostname="chip-smoke", scheduler_id=0)
+    ann = TrainerAnnouncer(store, server.address, hostname=hostname, scheduler_id=0)
     try:
-        t0 = time.perf_counter()
-        store.downloads.extend(downloads)
-        store.probes.extend(probes)
-        store.flush()
-        store_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         up = await ann.upload_once()
         closed = time.perf_counter()
@@ -891,16 +922,15 @@ async def wiring_loop(tmp: pathlib.Path, downloads: np.ndarray, probes: np.ndarr
         if not both_at:
             raise AssertionError(f"the run published {sorted(published)}, not both models: {service.last_result}")
         close_to_rows_s = both_at[0] - closed
-        if up["downloads"] != len(downloads) or up["probes"] != len(probes):
-            raise AssertionError(f"the announcer uploaded {up}, not all {len(downloads)} + {len(probes)} records")
+        if up["downloads"] != downloads or up["probes"] != probes:
+            raise AssertionError(f"the announcer uploaded {up}, not all {downloads} + {probes} records")
         if len(store.downloads) or len(store.probes):
             raise AssertionError("the uploaded telemetry was not discarded")
     finally:
         await ann.stop()
         await stop_trainer(server, service)
         await stub.stop()
-    return {"rows": published, "store_s": store_s, "upload_s": upload_s, "close_to_rows_s": close_to_rows_s,
-            "uploaded": up}
+    return {"rows": published, "upload_s": upload_s, "close_to_rows_s": close_to_rows_s, "uploaded": up}
 
 
 def wiring() -> dict:
@@ -912,7 +942,14 @@ def wiring() -> dict:
     downloads, probes = synth_telemetry_records(INGEST_ROWS, INGEST_ROWS, INGEST_HOSTS, seed=INGEST_SEED)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        loop = asyncio.run(wiring_loop(tmp, downloads, probes))
+        t0 = time.perf_counter()
+        store = TelemetryStorage(tmp / "telemetry")
+        store.downloads.extend(downloads)
+        store.probes.extend(probes)
+        store.flush()
+        store_s = time.perf_counter() - t0
+        loop = asyncio.run(wiring_loop(tmp, store, "chip-smoke"))
+        loop["store_s"] = store_s
         row = loop["rows"]["gnn"]
         path, digest = row["artifact_path"], row["artifact_digest"]
         native, hosts, native_load_s = timed_load(path, digest, native=True)
@@ -1274,11 +1311,264 @@ def evaluator() -> dict:
     return numbers
 
 
-def swarm() -> dict:
-    """The port's run_swarm over two reference scheduler processes whose
-    evaluator is the port's."""
+def sched_hosts() -> list[HostInfo]:
+    """The serving cell's SCHED_HOSTS hosts: eight idcs, nested locations, one
+    host in 64 a seed host, each with a piece-server port."""
+    return [HostInfo(id=f"h{i}", ip=f"10.{i >> 16}.{(i >> 8) & 255}.{i & 255}", hostname=f"host{i}",
+                     port=65000, download_port=65002, type="seed" if i % 64 == 0 else "normal",
+                     idc=f"idc{i % 8}", location=f"cn|r{i % 4}|z{i % 16}")
+            for i in range(SCHED_HOSTS)]
+
+
+def sched_probes(svc: SchedulerService, hosts: list[HostInfo]) -> int:
+    """SCHED_PROBES seeded probe results from every host through
+    sync_probes, RTTs from each pair's distance in idc and location; returns
+    the targets handed back."""
+    rng = np.random.default_rng(SCHED_SEED)
+    targets = 0
+    for i, h in enumerate(hosts):
+        dst = rng.integers(0, len(hosts), SCHED_PROBES)
+        jitter = rng.uniform(0.9, 1.1, SCHED_PROBES)
+        results = [{"dst_host_id": f"h{int(d)}",
+                    "rtt_ms": float(j * (0.3 + 2.0 * (int(d) % 8 != i % 8) + 8.0 * (int(d) % 4 != i % 4))),
+                    "success": True} for d, j in zip(dst, jitter)]
+        targets += len(svc.sync_probes(h.id, results))
+    return targets
+
+
+class FeatureBuildClock:
+    """ns of host time in the feature build, summed over threads: the
+    evaluator's _prepare (rows, index lookups) and the native round driver's
+    row export (scheduling._export_pair_rows), wrapped on this service's
+    evaluator and in the scheduling module until close()."""
+
+    def __init__(self, svc: SchedulerService):
+        self.ns = self.calls = 0
+        self._lock = threading.Lock()
+        self._ev, self._export = svc.evaluator, scheduling._export_pair_rows
+        self._ev._prepare = self._timed(self._ev._prepare)
+        scheduling._export_pair_rows = self._timed(self._export)
+
+    def _timed(self, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter_ns() - t0
+                with self._lock:
+                    self.ns += dt
+                    self.calls += 1
+        return run
+
+    def take(self) -> tuple[int, int]:
+        with self._lock:
+            out, self.ns, self.calls = (self.ns, self.calls), 0, 0
+        return out
+
+    def close(self) -> None:
+        del self._ev._prepare
+        scheduling._export_pair_rows = self._export
+
+
+async def sched_wave(svc: SchedulerService, hosts: list[HostInfo], tag: str, tasks: int) -> dict:
+    """One wave on fresh task ids: ``tasks`` tasks of SCHED_PEERS peers on
+    seeded hosts, driven by SCHED_DRIVERS concurrent drivers, each task's
+    peers in turn. The first peer of a task goes back to source; every later
+    registration is one scheduling round, whose parents serve its
+    SCHED_PIECES pieces, reported with its result in one report_batch.
+    Returns the register-to-parents seconds (host clock) and the counts."""
+    lat: list[float] = []
+    counts = {"back_to_source": 0, "parentless": 0}
+    length = SCHED_PIECES * (4 << 20)
+
+    async def drive(task_ids) -> None:
+        for t in task_ids:
+            meta = TaskMeta(task_id=f"{tag}-{t:04d}", url=f"http://origin.example/{tag}/{t}")
+            picks = np.random.default_rng([SCHED_SEED, t]).choice(len(hosts), SCHED_PEERS, replace=False)
+            for j, h in enumerate(picks):
+                pid = f"{tag}-{t}-{j}"
+                t0 = time.perf_counter()
+                r = await svc.register_peer(pid, meta, hosts[h])  # dflint: disable=DF025 one registration is one scheduling round: the wave's unit of work
+                dt = time.perf_counter() - t0
+                bw = {"success": True, "bandwidth_bps": 5e7 + 1e6 * (int(h) % 512)}
+                if r.back_to_source:
+                    counts["back_to_source"] += 1
+                    svc.report_task_metadata(meta.task_id, content_length=length, piece_size=4 << 20)
+                    svc.report_batch(pid, [(i, 20.0, "") for i in range(SCHED_PIECES)], bw)
+                    continue
+                if not r.parents:
+                    counts["parentless"] += 1
+                    continue
+                lat.append(dt)
+                ps = [p.peer_id for p in r.parents]
+                svc.report_batch(pid, [(i, 2.0 + (7 * i + j) % 40, ps[i % len(ps)]) for i in range(SCHED_PIECES)], bw)
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(drive(range(d, tasks, SCHED_DRIVERS)) for d in range(SCHED_DRIVERS)))
+    wall = time.perf_counter() - t0
+    rounds = len(lat) + counts["parentless"] + counts["back_to_source"] - tasks
+    if counts["back_to_source"] != tasks or counts["parentless"]:
+        raise AssertionError(f"wave {tag}: {counts} over {tasks} tasks (one back-to-source peer a task, "
+                             "and a parent for every later one)")
+    ms = np.array(lat) * 1e3
+    return {"tasks": tasks, "rounds": rounds, "wall_s": wall, "rounds_per_s": rounds / wall,
+            "register_to_parents_p50_ms": float(np.percentile(ms, 50)),
+            "register_to_parents_p99_ms": float(np.percentile(ms, 99))}
+
+
+def rescored_gap(scorer, record: dict, index: dict) -> float:
+    """The largest gap between a decision record's scores and ``scorer``'s
+    on the record's own rows and node rows."""
+    feats = np.asarray(record["feats"], np.float32)
+    child = np.full(len(feats), index[record["child_host"]], np.int32)
+    parent = np.array([index[q["host"]] for q in record["parents"]], np.int32)
+    return float(np.abs(scorer.score(feats, child=child, parent=parent) - np.asarray(record["scores"])).max())
+
+
+def attach_engine(svc: SchedulerService, scorer, index: dict, workers: int, version: str) -> None:
+    """Serve ``scorer`` as a scheduler's ManagerLink installs it: a
+    MicroBatchScorer always, a ScorerHandlePool under the dispatcher for a
+    scorer that forks; the dispatcher set to ``workers`` (0: none)."""
+    sched = svc.scheduling
+    if workers:
+        sched.attach_dispatcher(workers)
+    else:
+        sched.close()
+    pool = ScorerHandlePool(scorer) if workers and hasattr(scorer, "fork") else None
+    svc.evaluator.attach_scorer(scorer, index, microbatch=MicroBatchScorer(scorer), handle_pool=pool,
+                                version=version)
+
+
+def scheduler_phase() -> dict:
+    """The port's scheduler in process on the card's host: a base wave, the
+    loop from its own records to an attached model, then the ML waves (see
+    the module docstring)."""
     t_phase = time.perf_counter()
-    env = {**os.environ, "PYTHONPATH": str(REPO), "JAX_PLATFORMS": "cpu"}
+    ev = MLEvaluator()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        svc = SchedulerService(evaluator=ev, telemetry=TelemetryStorage(tmp / "telemetry"))
+        clock = FeatureBuildClock(svc)
+        try:
+            numbers = asyncio.run(scheduler_run(svc, tmp, clock))
+        finally:
+            clock.close()
+            svc.close()
+    numbers["host_cpu"] = host_cpu()
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    return numbers
+
+
+async def scheduler_run(svc: SchedulerService, tmp: pathlib.Path, clock: FeatureBuildClock) -> dict:
+    hosts = sched_hosts()
+    t0 = time.perf_counter()
+    for h in hosts:
+        svc.announce_host(h)
+    targets = sched_probes(svc, hosts)
+    setup_s = time.perf_counter() - t0
+    waves: dict[str, dict] = {}
+
+    def mirror_stats() -> dict:
+        m = svc.scheduling._mirror
+        return m.stats() if m is not None else {}
+
+    async def wave(name: str, tasks: int = SCHED_TASKS) -> dict:
+        sched = svc.scheduling
+        before, native0, mirror0, stale0, m0 = (fallbacks(), sched.native_rounds_served,
+                                                sched.mirror_rounds_served, sched.mirror_stale_rounds,
+                                                mirror_stats())
+        clock.take()
+        out = await sched_wave(svc, hosts, name, tasks)
+        ns, calls = clock.take()
+        after, m1 = fallbacks(), mirror_stats()
+        out.update(feature_build_us_per_round=ns / 1e3 / out["rounds"], feature_build_calls=calls,
+                   base_fallbacks={r: after[r] - before[r] for r in FALLBACK_REASONS},
+                   native_rounds=sched.native_rounds_served - native0,
+                   mirror_rounds=sched.mirror_rounds_served - mirror0,
+                   mirror_stale_rounds=sched.mirror_stale_rounds - stale0,
+                   mirror_drives=m1.get("drives", 0) - m0.get("drives", 0),
+                   dispatch_workers=sched.dispatcher.workers if sched.dispatcher else 0,
+                   serving=serving_gauges())
+        waves[name] = out
+        print(f"  wave {name}: {out['rounds']} rounds in {out['wall_s']:.2f} s, {out['rounds_per_s']:.1f} rounds/s, "
+              f"register to parents p50/p99 {out['register_to_parents_p50_ms']:.3f}/"
+              f"{out['register_to_parents_p99_ms']:.3f} ms, feature build {out['feature_build_us_per_round']:.1f} us "
+              f"a round, base fallbacks {out['base_fallbacks']}, native {out['native_rounds']}, mirror drives "
+              f"{out['mirror_drives']} (rounds native {out['mirror_rounds']}, stale {out['mirror_stale_rounds']})")
+        return out
+
+    base = await wave("base")
+    if base["base_fallbacks"]["no_scorer"] != base["rounds"]:
+        raise AssertionError(f"the base wave: {base['base_fallbacks']} for {base['rounds']} rounds")
+    records = {"downloads": len(svc.telemetry.downloads), "probes": len(svc.telemetry.probes)}
+    loop = await wiring_loop(tmp, svc.telemetry, "chip-smoke-scheduler")
+    row = loop["rows"]["gnn"]
+    path, digest = row["artifact_path"], row["artifact_digest"]
+    native, index, native_load_s = timed_load(path, digest, native=True)
+    torch_scorer, torch_index, torch_load_s = timed_load(path, digest, native=False)
+    if native.engine != "native" or torch_scorer.engine != "torch" or torch_scorer.device.type != "cuda":
+        raise AssertionError(f"the loader served {native.engine!r} and {torch_scorer.engine!r} on "
+                             f"{torch_scorer.device}, not native and torch on the card")
+    if index != torch_index:
+        raise AssertionError("the two loads disagree on the host index")
+    attach = {}
+    for name, scorer, workers in (("torch", torch_scorer, 0), ("torch_dispatch2", torch_scorer, 2),
+                                  ("native", native, 0), ("native_dispatch2", native, 2),
+                                  ("native_mirror", native, 2)):
+        t0 = time.perf_counter()
+        attach_engine(svc, scorer, index, workers, version=row["version"])
+        if name == "native_mirror" and svc.enable_native_mirror() is None:
+            raise AssertionError("the native bundle enabled no mirror")
+        attach[name] = time.perf_counter() - t0
+        engine = name.split("_")[0]
+        if serving_gauges() != {m: float(m == engine) for m in SERVING_MODES}:
+            raise AssertionError(f"attaching {name}: gauges {serving_gauges()}")
+        out = await wave(name)
+        fell = out["base_fallbacks"]
+        if fell["no_scorer"] or fell["scorer_error"] or fell["degraded"]:
+            raise AssertionError(f"wave {name}: rounds fell back to base {fell}")
+        if name == "native_dispatch2" and not out["native_rounds"]:
+            raise AssertionError(f"wave {name}: no round went through the native round driver")
+        if name == "native_mirror" and not (out["mirror_drives"] and out["mirror_rounds"] + out["mirror_stale_rounds"]):
+            raise AssertionError(f"the mirror wave: {out['mirror_drives']} mirror drives, "
+                                 f"{out['mirror_rounds']} + {out['mirror_stale_rounds']} rounds sampled there")
+        if name.startswith("torch"):
+            # the torch rounds' decision records, rescored natively
+            recs = [r for r in svc.decisions.snapshot(limit=1 << 20) if r["serving_mode"] == "torch"]
+            gap = max((rescored_gap(native, r, index) for r in recs), default=0.0)
+            if not recs or gap > SCORE_MAX_ABS:
+                raise AssertionError(f"wave {name}: {len(recs)} decision records, torch vs native {gap}")
+            out.update(decision_records=len(recs), torch_vs_native_max_abs=gap)
+    # the card's busy share over a traced torch wave on fresh task ids
+    attach_engine(svc, torch_scorer, index, 0, version=row["version"])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        traced = await sched_wave(svc, hosts, "traced", SCHED_TRACED_TASKS)
+        torch.cuda.synchronize()
+        traced_us = (time.perf_counter() - t0) * 1e6
+    busy = device_busy_us(prof)
+    if busy <= 0:
+        raise AssertionError("the traced torch wave ran nothing on the card")
+    traced.update(device_us_per_round=busy / traced["rounds"], busy_share=busy / traced_us)
+    svc.evaluator.swap_bundle(None)
+    native.close()
+    print(f"  {SCHED_HOSTS} hosts announced and {targets} probe targets handed out in {setup_s:.2f} s; "
+          f"records {records}; upload {loop['upload_s']:.2f} s, close to both rows published "
+          f"{loop['close_to_rows_s']:.2f} s; load + verify native {native_load_s:.3f} s, torch "
+          f"{torch_load_s:.3f} s; traced torch wave: {traced['rounds']} rounds, card busy "
+          f"{traced['device_us_per_round']:.1f} us a round = {100 * traced['busy_share']:.1f}% of the window")
+    return {"hosts": SCHED_HOSTS, "tasks": SCHED_TASKS, "peers_per_task": SCHED_PEERS, "setup_s": setup_s,
+            "probe_targets": targets, "records": records, "upload_s": loop["upload_s"],
+            "close_to_published_s": loop["close_to_rows_s"], "native_load_verify_s": native_load_s,
+            "torch_load_verify_s": torch_load_s, "attach_s": attach, "waves": waves, "traced_torch_wave": traced,
+            "gnn_evaluation": row["evaluation"]}
+
+
+def swarm() -> dict:
+    """The port's run_swarm over two of the port's scheduler processes."""
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
     procs, logs = [], []
     with tempfile.TemporaryDirectory() as tmp:
         try:
@@ -1287,8 +1577,8 @@ def swarm() -> dict:
                 logs.append(pathlib.Path(tmp) / f"scheduler-{i}.log")
                 with open(logs[-1], "w") as err:
                     procs.append(subprocess.Popen(
-                        [sys.executable, "-m", "dragonfly2_tpu.scheduler.server", "--host", "127.0.0.1",
-                         "--port", "0", "--evaluator", SWARM_SPEC],
+                        [sys.executable, "-m", "dragonfly2_tpu_torch.scheduler.server", "--host", "127.0.0.1",
+                         "--port", "0", "--evaluator", "ml"],
                         cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=err, text=True))
             addrs = [proc_lib.ready_address(proc, "SCHEDULER_READY", deadline) for proc in procs]
             boot_s = time.perf_counter() - t_phase
@@ -1322,7 +1612,7 @@ def swarm() -> dict:
     print(f"  {run['value']} rounds/s over {len(addrs)} schedulers ({ex['peers']} peers, {ex['tasks']} tasks, "
           f"{ex['pieces_per_round']} pieces, {ex['elapsed_s']} s), {ex['rounds']} rounds, {ex['errors']} errors; "
           f"p50/p99 {ex['p50_ms']}/{ex['p99_ms']} ms; round shares {share} (ring {predicted}); rpc shares "
-          f"{ex['per_scheduler_rpc_share']}; both booted the port's evaluator in {boot_s:.1f} s; host "
+          f"{ex['per_scheduler_rpc_share']}; both of the port's schedulers booted in {boot_s:.1f} s; host "
           f"{numbers['host_cpu']}; phase {numbers['wall_s']:.1f} s")
     return numbers
 
@@ -1670,6 +1960,16 @@ def main() -> int:
         if any(seen.values()):
             raise AssertionError(f"the evaluator path launched a kernel it does not call: {seen}")
         print(json.dumps({"evaluator": numbers, "card": card}))
+
+    with phase("scheduler"):
+        zero_counts()
+        numbers = scheduler_phase()
+        # no kernel is on this path: the scheduler scores through the C++
+        # scorer or GNNScorer's plain ops, and the trainer runs SAGELayer's
+        numbers["kernel_launches"] = seen = counts()
+        if any(seen.values()):
+            raise AssertionError(f"the scheduler path launched a kernel it does not call: {seen}")
+        print(json.dumps({"scheduler": numbers, "card": card}))
 
     with phase("swarm"):
         zero_counts()

@@ -20,21 +20,29 @@ Layout:
                   the localhost launcher and one multi-process training job
   tpuvm/          safetensors reader/writer and checkpoint staging onto the
                   card or a mesh
-  telemetry/      the download and probe record schemas and their stores
-  observability/  metric registry, span tracer, feature sketch, drift
-                  detector
+  telemetry/      the download and probe record schemas, their stores and
+                  the per-edge bandwidth history
+  observability/  metric registry, span tracer with head sampling, feature
+                  sketch, drift detector, event-loop health monitor
   utils/          the injectable clock, the entry points' signal wait, the
-                  token bucket, plugin loading by import path
+                  token bucket, plugin loading by import path, the id, piece,
+                  bitset, DAG, FSM and delta-clock helpers, the YAML config
+                  layer, the GC registry and per-component logging
   native/         the micro-batching request front, the native C++ scorer
                   (csrc/scorer.cc) and its scorer.dfsc writer
   rpc/            the JAX package's wire protocol (TCP or a unix socket)
                   with its client's retries and breaker, the trainer's RPC
                   adapters, the manager client's trainer-side subset, the
-                  scheduler client and its consistent-hash balancer
-  scheduler/      the model loader a scheduler attaches artifacts through,
-                  the announcer that uploads telemetry to the trainer, the
-                  evaluator a reference scheduler loads as a plugin
-                  (plugin:dragonfly2_tpu_torch.scheduler.evaluator:MLEvaluator)
+                  scheduler's RPC server and client and the client's
+                  consistent-hash balancer
+  scheduler/      the scheduler itself: resource pool, network topology,
+                  scheduling rounds (serial, dispatched, native driver and
+                  mirror), SchedulerService, its YAML config, the brownout
+                  ladder and the process (python -m
+                  dragonfly2_tpu_torch.scheduler.server); the evaluator (which
+                  a reference scheduler also loads as a plugin), the model
+                  loader a scheduler attaches artifacts through and the
+                  announcer that uploads telemetry to the trainer
   resilience/     backoff, circuit breaker, retry budget, deadlines, and
                   the seeded fault injection (faultline) on the port's
                   artifact loads and RPC wire

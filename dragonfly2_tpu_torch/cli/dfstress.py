@@ -25,7 +25,8 @@ names another; with no card and no ``--device`` it raises.
     python -m dragonfly2_tpu_torch.cli.dfstress --swarm --schedulers a:1,b:2
 
 drives N simulated peers (``--peers``, 200) through the full control-plane
-round against a federation of reference schedulers over the wire, through
+round against a federation of schedulers (the port's or the reference's)
+over the wire, through
 the port's ``BalancedSchedulerClient`` (a consistent-hash ring over
 ``RemoteSchedulerClient``s, each with its own circuit breaker; see
 ``run_swarm``). It runs no torch work and needs no device. Exit code 1 when

@@ -45,6 +45,14 @@ class GNNScorer:
     the caller names another; it raises when no card is present). The JAX
     GNNScorer pins serving to the host CPU instead; whether a 40-candidate
     round pays for the trip to the card is for measurement to decide.
+
+    Threads: ``score`` reads only the tables ``refresh`` cached and builds
+    its own inputs, so the scheduler's round dispatcher workers call one
+    scorer at once (a torch bundle has no per-thread handles; its
+    ``thread_scorer()`` is this scorer). On the card their kernels queue on
+    the device's one default stream: concurrent calls overlap their host
+    legs, not their device work. ``refresh`` and ``update_params`` must not
+    run beside them.
     """
 
     # The serving-mode label a scheduler reads. The port's evaluator

@@ -340,7 +340,7 @@ class NativeMirror:
 
     This class is the thin FFI layer only — slot allocation, the mutation
     hooks, and the full-sync protocol live in the scheduler's MirrorClient
-    (dragonfly2_tpu/scheduler/mirror.py), which the port does not copy.
+    (scheduler/mirror.py).
     Delta methods are cached bound functions because they sit on mutation
     hot paths (every feat bump crosses here once); `drive` marshals the
     caller's arena pointers the same way NativeScorer.bind_drive does.

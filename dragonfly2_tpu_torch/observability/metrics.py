@@ -2,9 +2,10 @@
 
 The port's own copy of the counter, gauge, histogram and registry of
 dragonfly2_tpu/observability/metrics.py: what the trainer's
-``dragonfly_train_*`` families and the evaluator's ``dragonfly_scheduler_*``
-families need. The HTTP handler is not copied: the port serves no /metrics,
-and a reference scheduler's /metrics renders only the reference's registry.
+``dragonfly_train_*`` families and the scheduler's ``dragonfly_scheduler_*``
+and ``dragonfly_loop_*`` families need. The HTTP handler is not copied: the
+port serves no /metrics, and a reference scheduler's /metrics renders only
+the reference's registry.
 
 The reference exposes Prometheus counters/gauges/histograms per service on a
 dedicated metrics port (scheduler/metrics/metrics.go:46-179,
@@ -22,6 +23,7 @@ acquire is ~100 ns, noise next to the dict lookups around it.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Iterable, Mapping, Sequence
 
 
@@ -169,6 +171,10 @@ class Histogram(_Metric):
     def observe(self, value: float, **labels: str) -> None:
         self.labels(**labels).observe(value)
 
+    def time(self, **labels: str) -> "_HistTimer":
+        """A context manager that observes the seconds its block took."""
+        return _HistTimer(self.labels(**labels))
+
     class _Child:
         __slots__ = ("buckets", "counts", "total", "count", "_lock")
 
@@ -202,6 +208,19 @@ class Histogram(_Metric):
             yield f"{self.name}_bucket{_fmt_labels(dict(base, le='+Inf'))} {count}"
             yield f"{self.name}_sum{_fmt_labels(base)} {_fmt_value(total)}"
             yield f"{self.name}_count{_fmt_labels(base)} {count}"
+
+
+class _HistTimer:
+    def __init__(self, child: "Histogram._Child"):
+        self._child = child
+        self._start = 0.0
+
+    def __enter__(self) -> "_HistTimer":
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._child.observe(time.perf_counter() - self._start)
 
 
 class MetricsRegistry:

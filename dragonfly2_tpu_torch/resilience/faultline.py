@@ -14,9 +14,9 @@ reference at the same places:
                 trainer/artifacts.artifact_digest, each file's       truncate corrupt
                 bytes before they are hashed
 
-The reference's other points sit in modules the port does not copy (the
-daemon's fetch, source and storage paths). ``model.swap`` fires in the
-reference scheduler's ``ManagerLink`` swap, which the port does not copy
+The reference's other points sit in modules the port has not copied yet
+(the daemon's fetch, source and storage paths). ``model.swap`` fires in
+the scheduler's ``ManagerLink`` swap, which the port has not copied yet
 either, so it has no site here.
 
 Fault kinds:

@@ -1,76 +1,33 @@
-"""The scheduler's wire client: the port of the client half of
-dragonfly2_tpu/rpc/scheduler.py.
+"""Scheduler RPC adapters over the port's rpc/core.py: the port of
+dragonfly2_tpu/rpc/scheduler.py, whole.
 
-``RemoteSchedulerClient`` speaks the reference scheduler's RPC methods
-(``SCHEDULER_METHODS``) over the port's ``RpcClient``, so a port caller
-drives a reference scheduler (``python -m dragonfly2_tpu.scheduler.server``)
-over the wire. The wire dataclasses ``HostInfo``, ``TaskMeta``,
-``ParentInfo`` and ``RegisterResult`` are the port's own copies of the
-reference's (``scheduler/service.py``): ``dataclasses.asdict`` of each
-equals the reference's field for field, which is what crosses the wire.
+Server half: ``SchedulerRpcAdapter`` maps wire payloads onto the port's
+``SchedulerService`` (scheduler/service.py) one method for one, and
+``serve_scheduler`` registers it on an ``RpcServer`` under
+``SCHEDULER_METHODS``; ``python -m dragonfly2_tpu_torch.scheduler.server``
+serves it. Client half: ``RemoteSchedulerClient`` speaks the same methods
+over the port's ``RpcClient``, so a port caller drives either package's
+scheduler process, and the reference's client drives the port's.
 
-Not ported: the server half (``SchedulerRpcAdapter``, ``serve_scheduler``),
-which wraps the reference's ``SchedulerService``; the port has no
-scheduler service of its own.
+The wire dataclasses ``HostInfo``, ``TaskMeta``, ``ParentInfo`` and
+``RegisterResult`` live in scheduler/service.py, as in the reference, and are
+re-exported here: ``dataclasses.asdict`` of each equals the reference's
+field for field, which is what crosses the wire.
 """
 
 from __future__ import annotations
 
-from dataclasses import asdict, dataclass, field
+from dataclasses import asdict
 from typing import Any
 
-from dragonfly2_tpu_torch.rpc.core import RpcClient
-
-
-@dataclass
-class HostInfo:
-    id: str
-    ip: str
-    hostname: str
-    port: int = 0
-    download_port: int = 0
-    type: str = "normal"
-    idc: str = ""
-    location: str = ""
-
-
-@dataclass
-class TaskMeta:
-    task_id: str
-    url: str
-    digest: str = ""
-    tag: str = ""
-    application: str = ""
-    filters: tuple = ()
-    # the traffic shaper's tenant weight, carried to the scheduler so its
-    # admission-control brownout rung sheds the lowest first
-    priority: float = 1.0
-
-
-@dataclass
-class ParentInfo:
-    """What a child needs to reach a parent's piece server."""
-
-    peer_id: str
-    host_id: str
-    ip: str
-    download_port: int
-
-
-@dataclass
-class RegisterResult:
-    scope: str
-    task_id: str
-    back_to_source: bool = False
-    parents: list[ParentInfo] = field(default_factory=list)
-    direct_piece: bytes = b""
-    content_length: int | None = None
-    piece_size: int | None = None
-    total_pieces: int | None = None
-    digest: str = ""
-    error: str = ""  # non-empty: registration refused (e.g. cache gone)
-    # error == "overloaded": come back after this many seconds
-    retry_after_s: float = 0.0
+from dragonfly2_tpu_torch.rpc.core import RpcClient, RpcError, RpcServer
+from dragonfly2_tpu_torch.scheduler.service import (  # noqa: F401 — the wire dataclasses' public home here too
+    HostInfo,
+    ParentInfo,
+    RegisterResult,
+    SchedulerService,
+    TaskMeta,
+)
 
 
 SCHEDULER_METHODS = [
@@ -93,9 +50,139 @@ SCHEDULER_METHODS = [
 ]
 
 
+def _result_to_wire(r: RegisterResult) -> dict:
+    return asdict(r)  # recursive: ParentInfo entries become dicts too
+
+
 def _result_from_wire(d: dict) -> RegisterResult:
     parents = [ParentInfo(**p) for p in d.pop("parents", [])]
     return RegisterResult(parents=parents, **d)
+
+
+class SchedulerRpcAdapter:
+    """Server-side: msgpack payloads -> SchedulerService calls."""
+
+    def __init__(self, service: SchedulerService):
+        self.svc = service
+
+    async def register_peer(self, p: dict) -> dict:
+        out = await self.svc.register_peer(
+            p["peer_id"],
+            TaskMeta(**{**p["meta"], "filters": tuple(p["meta"].get("filters", ()))}),
+            HostInfo(**p["host"]),
+        )
+        return _result_to_wire(out)
+
+    async def report_task_metadata(self, p: dict) -> None:
+        self.svc.report_task_metadata(
+            p["task_id"],
+            content_length=p["content_length"],
+            piece_size=p.get("piece_size"),
+            digest=p.get("digest", ""),
+            direct_piece=p.get("direct_piece", b""),
+        )
+
+    async def report_piece_result(self, p: dict) -> None:
+        self.svc.report_piece_result(
+            p["peer_id"],
+            p["piece_index"],
+            success=p["success"],
+            cost_ms=p.get("cost_ms", 0.0),
+            parent_id=p.get("parent_id", ""),
+        )
+
+    async def report_pieces(self, p: dict) -> int:
+        # triples arrive as msgpack lists; the applied count rides back so
+        # callers (and tests) can observe idempotent re-applies
+        if "reports" in p:
+            reports = p["reports"]
+        else:
+            # the older wire shape (flat index list + one shared cost): accept it —
+            # a rolling upgrade must not silently zero an old daemon's batch
+            # (a payload with NEITHER key is malformed: KeyError -> rpc error)
+            reports = [(i, p.get("cost_ms", 0.0), "") for i in p["piece_indices"]]
+        return self.svc.report_pieces(p["peer_id"], reports)
+
+    async def report_batch(self, p: dict) -> int:
+        # task-close combo: residual piece triples + the final peer result in
+        # one frame (both legs idempotent server-side, so the rpc client's
+        # retries re-apply as no-ops)
+        return self.svc.report_batch(
+            p["peer_id"], p.get("reports", []), result=p.get("result")
+        )
+
+    async def announce_task(self, p: dict) -> None:
+        self.svc.announce_task(
+            p["peer_id"],
+            TaskMeta(**{**p["meta"], "filters": tuple(p["meta"].get("filters", ()))}),
+            HostInfo(**p["host"]),
+            content_length=p["content_length"],
+            piece_size=p["piece_size"],
+            piece_indices=p["piece_indices"],
+            digest=p.get("digest", ""),
+        )
+
+    async def report_peer_result(self, p: dict) -> None:
+        self.svc.report_peer_result(
+            p["peer_id"], success=p["success"], bandwidth_bps=p.get("bandwidth_bps", 0.0)
+        )
+
+    async def reschedule(self, p: dict) -> dict:
+        try:
+            return _result_to_wire(await self.svc.reschedule(p["peer_id"]))
+        except KeyError:
+            # a restarted (or GC'd) scheduler does not know this peer; the
+            # typed code lets the conductor re-register and rebuild the
+            # scheduler's view instead of treating this as an internal fault
+            raise RpcError(f"unknown peer {p['peer_id']}", code="not_found")
+
+    async def leave_peer(self, p: dict) -> None:
+        self.svc.leave_peer(p["peer_id"])
+
+    async def leave_host(self, p: dict) -> None:
+        self.svc.leave_host(p["host_id"])
+
+    async def announce_host(self, p: dict) -> None:
+        self.svc.announce_host(HostInfo(**p["host"]), p.get("stats"))
+
+    async def stat_task(self, p: dict) -> dict | None:
+        return self.svc.stat_task(p["task_id"])
+
+    async def sync_probes(self, p: dict) -> list[dict]:
+        return self.svc.sync_probes(p["host_id"], p.get("results", []))
+
+    async def federation_sync(self, p: dict) -> dict:
+        from dragonfly2_tpu_torch.observability.tracing import default_tracer
+
+        # named span on the RESPONDER: a trace shows the gossip exchange on
+        # the member that applied it
+        with default_tracer().span("federation.apply", origin=p.get("origin", "")):
+            return self.svc.federation_sync(
+                p.get("origin", ""),
+                topo_since=p.get("topo_since", 0),
+                bw_since=p.get("bw_since", 0),
+                topo_push=p.get("topo_push"),
+                bw_push=p.get("bw_push"),
+                epoch=p.get("epoch", ""),
+            )
+
+    async def federation_state(self, p: Any = None) -> dict:
+        return self.svc.federation_state()
+
+    async def decision_records(self, p: dict | None = None) -> dict:
+        p = p or {}
+        return self.svc.decision_records(
+            task_id=p.get("task_id"),
+            child=p.get("child"),
+            limit=int(p.get("limit", 64)),
+            with_features=bool(p.get("with_features", True)),
+        )
+
+
+def serve_scheduler(service: SchedulerService, **server_kw: Any) -> RpcServer:
+    server = RpcServer(**server_kw)
+    server.register_service(SchedulerRpcAdapter(service), SCHEDULER_METHODS)
+    return server
 
 
 class RemoteSchedulerClient:

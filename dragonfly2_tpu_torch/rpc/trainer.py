@@ -5,12 +5,15 @@ TrainerService."""
 
 from __future__ import annotations
 
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 
 from dragonfly2_tpu_torch.rpc.core import RpcClient, RpcServer
-from dragonfly2_tpu_torch.trainer.service import TrainerService, pack_records
+from dragonfly2_tpu_torch.telemetry.records import pack_records
+
+if TYPE_CHECKING:  # the client half (a scheduler's announcer) loads no trainer
+    from dragonfly2_tpu_torch.trainer.service import TrainerService
 
 TRAINER_METHODS = [
     "train_open", "train_chunk", "train_close", "status", "train_history",

@@ -28,11 +28,13 @@ GNN scorer with base fallback.
 The evaluator receives ALL candidates of a round at once and returns a
 score vector — one vectorized numpy pass (base) or one scorer call (ml).
 
-The feature build reads the reference scheduler's Peer, Host and Task by
-duck typing and writes the same (version, row) tuples onto a peer as the
-reference's evaluator does (``Peer._feat_row``, ``Peer._pair_rows``,
-``Peer._bad_memo``), so a reference evaluator and this one in one process
-share those caches harmlessly: both compute the same bytes for a version
+The port's own scheduler (scheduler/service.py) serves it too, as
+``new_evaluator("ml")``. The feature build reads a scheduler's Peer, Host and
+Task by duck typing, the port's (scheduler/resource.py) or the reference's,
+and writes the same (version, row) tuples onto a peer as the reference's
+evaluator does (``Peer._feat_row``, ``Peer._pair_rows``, ``Peer._bad_memo``),
+so a reference evaluator and this one in one process share those caches
+harmlessly: both compute the same bytes for a version
 (tests/test_torch_evaluator.py holds them bit-equal).
 """
 
@@ -54,11 +56,12 @@ from dragonfly2_tpu_torch.models.features import (
 )
 from dragonfly2_tpu_torch.utils import clock as clockmod
 
-# The scheduler's Peer, Host and Task are the reference's (the port has no
-# resource pool of its own): every function here reads them by duck typing.
+# The scheduler's Peer, Host and Task are the port's (scheduler/resource.py)
+# or, behind a reference scheduler's plugin slot, the reference's: every
+# function here reads them by duck typing.
 Peer = Any
-# HostType is a str enum in the reference (resource.py); its SEED member
-# compares equal to this value
+# HostType is a str enum in both packages; its SEED member compares equal to
+# this value
 _SEED = "seed"
 
 logger = logging.getLogger(__name__)
@@ -396,8 +399,9 @@ class DecisionRecorder:
                 "topk": self.topk,
                 "model_version": getattr(bundle, "version", "") or "",
                 "serving_mode": self._mode_label(bundle),
-                # the port's tracer records every span it opens (no sampling)
-                "trace_id": ctx.trace_id if ctx is not None else "",
+                "trace_id": (
+                    ctx.trace_id if ctx is not None and ctx.sampled else ""
+                ),
             }
             with self._lock:
                 self._ring.append(record)

@@ -1,12 +1,20 @@
-"""The scheduler metric families the port's evaluator and shadow tracker
-write: the port of those families of dragonfly2_tpu/scheduler/metrics.py,
+"""Scheduler metric families: the port of dragonfly2_tpu/scheduler/metrics.py,
 in the port's own registry (observability/metrics.py).
 
-The names are the reference's (``dragonfly_scheduler_*``). The port's
-registry is not the reference's: a reference scheduler whose evaluator is
-the port's (``plugin:dragonfly2_tpu_torch.scheduler.evaluator:MLEvaluator``)
-renders only its own registry on /metrics, so these families are read in
-process (``ML_SERVING_MODE.labels(mode=...).value``), not scraped.
+The names are the reference's (``dragonfly_scheduler_*``, after the upstream
+scheduler/metrics/metrics.go:46-179): peer registrations, piece and peer
+results by outcome, scheduling round latency, traffic, live resource gauges,
+the round dispatcher, the native round driver and mirror, the ml evaluator's
+serving mode and fallbacks, shadow scoring, the federation exchange, the
+brownout ladder, and ``ServiceMetrics``, the registry-scoped twins one
+``SchedulerService`` owns. The ManagerLink's swap and rollout families, the
+federation loop's and the manager-outage gauge come with the slice that
+ports those. ``ML_SERVING_MODE`` has a ``torch`` label of its own beside the
+reference's (the port's GNNScorer).
+
+The port serves no /metrics, and a reference scheduler's /metrics renders only
+the reference's registry: these families are read in process
+(``ML_SERVING_MODE.labels(mode=...).value``), not scraped.
 """
 
 from __future__ import annotations
@@ -15,6 +23,103 @@ from dragonfly2_tpu_torch.observability.metrics import default_registry
 
 _r = default_registry()
 
+REGISTER_PEER_TOTAL = _r.counter(
+    "register_peer_total", "Peer registrations", subsystem="scheduler", labels=("scope",)
+)
+SCHEDULE_DURATION = _r.histogram(
+    "schedule_duration_seconds",
+    "Latency of one candidate-parent scheduling round (filter+score)",
+    subsystem="scheduler",
+)
+PIECE_RESULT_TOTAL = _r.counter(
+    "piece_result_total", "Piece results reported", subsystem="scheduler", labels=("success",)
+)
+PIECE_REPORT_BATCH_TOTAL = _r.counter(
+    "piece_report_batch_total",
+    "Batched piece-report flushes received (report_pieces RPCs)",
+    subsystem="scheduler",
+)
+PIECE_REPORT_DUPLICATE_TOTAL = _r.counter(
+    "piece_report_duplicate_total",
+    "Batched piece reports skipped as already applied (idempotent re-apply)",
+    subsystem="scheduler",
+)
+PEER_RESULT_TOTAL = _r.counter(
+    "peer_result_total", "Peer download completions", subsystem="scheduler", labels=("success",)
+)
+BACK_TO_SOURCE_TOTAL = _r.counter(
+    "back_to_source_total", "Peers escalated to back-to-source", subsystem="scheduler"
+)
+# resurrection accounting: ghost peer rows replaced when their host
+# re-announced/re-registered after a crash (no leave_host was ever sent)
+PEER_SUPERSEDED_TOTAL = _r.counter(
+    "peer_superseded_total", "Stale same-host peer rows replaced on rejoin",
+    subsystem="scheduler",
+)
+DOWNLOAD_TRAFFIC_BYTES = _r.counter(
+    "download_traffic_bytes_total", "Bytes reported via piece results", subsystem="scheduler"
+)
+# Sharded round dispatcher: worker-thread count and rounds whose
+# find leg ran off-loop — dispatched/total-schedule ratio says whether the
+# multi-core path is actually serving.
+DISPATCH_WORKERS = _r.gauge(
+    "dispatch_workers", "Round-dispatcher worker threads (0 = serial loop)",
+    subsystem="scheduler",
+)
+DISPATCHED_ROUNDS_TOTAL = _r.counter(
+    "dispatched_rounds_total",
+    "Scheduling find rounds sharded onto dispatcher worker threads",
+    subsystem="scheduler",
+)
+# Native round driver: whole rounds (filter re-validation, feature
+# column fill, scoring, stable top-k) resolved by ONE df_round_drive FFI call
+# per dispatched batch. native/total-schedule ratio says whether the native
+# path is actually serving; the fallback reasons name why a round
+# stayed on the serial Python leg.
+NATIVE_ROUNDS_TOTAL = _r.counter(
+    "native_rounds_total",
+    "Scheduling rounds resolved end-to-end by the native round driver",
+    subsystem="scheduler",
+)
+NATIVE_ROUND_FALLBACK_TOTAL = _r.counter(
+    "native_round_fallback_total",
+    "Rounds routed back to the serial Python leg (no_native = no eligible "
+    "native bundle, unknown_hosts = node outside the embedding table, "
+    "driver_error = the drive call itself failed)",
+    subsystem="scheduler", labels=("reason",),
+)
+# Native mirrored peer table: rounds where sampling, filtering,
+# feature gather, scoring AND top-k all ran against the C-side mirror — no
+# snapshot-under-lock, no Python peer-pool walk. mirror/native ratio says how
+# often the incremental delta stream kept the mirror current; stale rounds
+# are the lazy-revalidation path (serial score once, rows re-pushed, next
+# drive native); the fallback reasons name why a round left the mirror.
+NATIVE_MIRROR_ROUNDS_TOTAL = _r.counter(
+    "native_mirror_rounds_total",
+    "Scheduling rounds resolved end-to-end against the native mirrored "
+    "peer table (no Python snapshot leg)",
+    subsystem="scheduler",
+)
+NATIVE_MIRROR_STALE_ROUNDS_TOTAL = _r.counter(
+    "native_mirror_stale_rounds_total",
+    "Mirror rounds whose cached feature rows were version-stale: survivors "
+    "scored on the serial leg once, refreshed rows pushed back",
+    subsystem="scheduler",
+)
+NATIVE_MIRROR_FALLBACK_TOTAL = _r.counter(
+    "native_mirror_fallback_total",
+    "Rounds routed off the mirror (mirror_miss = object not yet mirrored "
+    "or deleted mid-drive, driver_error = the mirror drive call failed, "
+    "slot_race = survivor slot remapped between drive and commit, "
+    "poisoned = a mutation hook failed and the mirror detached itself)",
+    subsystem="scheduler", labels=("reason",),
+)
+PEERS_GAUGE = _r.gauge("peers", "Live peers in the resource pool", subsystem="scheduler")
+TASKS_GAUGE = _r.gauge("tasks", "Live tasks in the resource pool", subsystem="scheduler")
+HOSTS_GAUGE = _r.gauge("hosts", "Live hosts in the resource pool", subsystem="scheduler")
+PROBES_SYNCED_TOTAL = _r.counter(
+    "probes_synced_total", "Network-topology probe results ingested", subsystem="scheduler"
+)
 # Staleness of the ml evaluator's cached embeddings: age = now() - this
 # timestamp at query side. 0 = no model attached yet (base fallback).
 ML_EMBEDDINGS_REFRESH_TIMESTAMP = _r.gauge(
@@ -63,3 +168,63 @@ SHADOW_RANK_CORR = _r.gauge(
     "the current shadow window",
     subsystem="scheduler",
 )
+# Scheduler federation: push-pull topology/bandwidth gossip between ring
+# members (the service serves the exchange; the gossip loop and its sync
+# families come with the port's federation.py). Sent/received counts are DELTA entries (edges +
+# bandwidth pairs), so steady-state rates near zero are the health signal
+# that watermarking works — O(all edges) payloads every tick would show up
+# here immediately.
+FEDERATION_DELTAS_SENT_TOTAL = _r.counter(
+    "federation_deltas_sent_total",
+    "Topology/bandwidth delta entries pushed or served to peer schedulers",
+    subsystem="scheduler",
+)
+FEDERATION_DELTAS_APPLIED_TOTAL = _r.counter(
+    "federation_deltas_applied_total",
+    "Peer delta entries merged into the local topology/bandwidth view",
+    subsystem="scheduler",
+)
+# Brownout ladder: the current degradation rung, 0 = normal
+# through 4 = priority-aware admission control (scheduler/degradation.py
+# LEVEL_NAMES). A stock alert rule fires on >= 1; dftop shows the rung
+# cluster-wide via the stats frame.
+DEGRADATION_LEVEL = _r.gauge(
+    "degradation_level",
+    "Brownout ladder rung (0 normal, 1 shed shadow, 2 shed observability, "
+    "3 base-only serving, 4 admission control)",
+    subsystem="scheduler",
+)
+ADMISSION_SHED_TOTAL = _r.counter(
+    "admission_shed_total",
+    "Registrations refused with a typed overloaded + retry_after_s answer "
+    "by the admission-control rung, by traffic-shaper priority class",
+    subsystem="scheduler", labels=("priority",),
+)
+
+
+class ServiceMetrics:
+    """Registry-scoped serving-health twins for ONE SchedulerService.
+
+    The families above are process-global — right for a production process
+    (one scheduler per process, one scrape endpoint), wrong for rollout
+    HEALTH BASELINES: a test/dfcluster process running several services
+    shared one set of counters, so service A's traffic moved service B's
+    post-swap baseline. Each service owns this private registry; the hot sites record into BOTH (the
+    extra observe is one lock + few adds, noise next to the round), and
+    rollout.HealthSample.capture(source=...) windows the private one.
+    """
+
+    def __init__(self):
+        from dragonfly2_tpu_torch.observability.metrics import MetricsRegistry
+
+        self.registry = MetricsRegistry()
+        self.schedule_duration = self.registry.histogram(
+            "schedule_duration_seconds",
+            "Latency of one scheduling round (this service instance only)",
+            subsystem="scheduler",
+        )
+        self.base_fallback = self.registry.counter(
+            "ml_base_fallback_total",
+            "Base-fallback rounds (this service instance only)",
+            subsystem="scheduler", labels=("reason",),
+        )

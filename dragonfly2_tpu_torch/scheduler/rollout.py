@@ -18,17 +18,20 @@ through the bundle protocol.
   round_divergence, delta_hist_quantile: the pure pieces the tracker is
                     built from.
 
-Not ported: DivergenceGates and merge_reports (the promotion gate over the
-federation's merged shadow reports), HealthGates, HealthSample,
-PostSwapHealth and RolloutPolicy. They belong to the scheduler side (the
-gate, post-swap health and auto-rollback are decided in the reference's
-ManagerLink, on its own copies, over this tracker's snapshots), which stays
-the reference's.
+  HealthGates       the post-swap regression bounds, the dataclass the
+                    scheduler's YAML ``rollout:`` section builds
+                    (scheduler/config.py).
+
+Not ported yet: DivergenceGates and merge_reports (the promotion gate over
+the federation's merged shadow reports), HealthSample, PostSwapHealth and
+RolloutPolicy. They are decided in a scheduler's ManagerLink over this
+tracker's snapshots, and the port's scheduler has no ManagerLink yet.
 """
 
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
@@ -342,3 +345,21 @@ def _bucket_quantile(
         cum += c
         lo = b
     return float(buckets[-1]) if buckets else 0.0
+
+
+@dataclass
+class HealthGates:
+    """Post-swap regression bounds (scheduler-side auto-rollback trigger).
+
+    Evaluated once per watch tick against deltas of the scheduler's own
+    serving metrics since the swap; the first tick at/after min_rounds
+    observed rounds (or window_s elapsed with at least one round) decides.
+    Rate bounds are ABSOLUTE-increase bounds over the pre-swap baseline
+    rate: a cluster already serving 10% base fallback doesn't rollback a
+    model that holds 10%."""
+
+    window_s: float = 60.0
+    min_rounds: int = 50
+    max_fallback_rate_increase: float = 0.2   # base-fallback per round
+    max_error_rate_increase: float = 0.05     # scorer_error fallbacks per round
+    max_latency_ratio: float = 5.0            # mean round latency vs baseline

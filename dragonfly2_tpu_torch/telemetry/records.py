@@ -15,6 +15,7 @@ files that either package reads.
 
 from __future__ import annotations
 
+import io
 import time
 from pathlib import Path
 
@@ -184,3 +185,16 @@ class TelemetryStorage:
     def clear(self) -> None:
         self.downloads.clear()
         self.probes.clear()
+
+
+def pack_records(arr: np.ndarray) -> bytes:
+    """A record array as .npy bytes: the trainer RPC's chunk payload (the
+    reference's ``trainer/service.pack_records``, kept here so that an
+    uploading scheduler needs nothing of the trainer)."""
+    buf = io.BytesIO()
+    np.save(buf, arr, allow_pickle=False)
+    return buf.getvalue()
+
+
+def unpack_records(data: bytes) -> np.ndarray:
+    return np.load(io.BytesIO(data), allow_pickle=False)

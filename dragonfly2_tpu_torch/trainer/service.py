@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import asyncio
 import collections
-import io
 import logging
 import time
 from dataclasses import dataclass, field
@@ -56,6 +55,7 @@ from typing import Any
 import numpy as np
 
 from dragonfly2_tpu_torch.observability.tracing import Tracer, default_tracer
+from dragonfly2_tpu_torch.telemetry.records import pack_records, unpack_records  # noqa: F401 — the wire codec's public home here too
 from dragonfly2_tpu_torch.trainer import (
     artifacts,
     dataset as datasetlib,
@@ -68,16 +68,6 @@ logger = logging.getLogger(__name__)
 
 # run manifests kept for `train_history` (one per training run, bounded)
 RUN_HISTORY_CAP = 64
-
-
-def pack_records(arr: np.ndarray) -> bytes:
-    buf = io.BytesIO()
-    np.save(buf, arr, allow_pickle=False)
-    return buf.getvalue()
-
-
-def unpack_records(data: bytes) -> np.ndarray:
-    return np.load(io.BytesIO(data), allow_pickle=False)
 
 
 @dataclass

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no JAX, no flax, no optax, nothing of the
 JAX package, no triton and no msgpack (the card's machine does not promise
 it; the port carries its own codec), whether imported or named in its
-sources; it stays dflint-clean; and chip_smoke.py refuses to run without a
-card."""
+sources, and no process of the JAX package launched from its sources or
+chip_smoke.py; it stays dflint-clean; and chip_smoke.py refuses to run
+without a card."""
 
 import re
 import subprocess
@@ -34,6 +35,11 @@ _FORBIDDEN = re.compile(
 )
 
 
+# a process launch of the reference package: ``"-m", "dragonfly2_tpu.<module>"``
+# in an argument list (a docstring naming the command line is not a launch)
+_LAUNCH = re.compile(r"""["']-m["']\s*,\s*["']dragonfly2_tpu\.""")
+
+
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
@@ -58,6 +64,20 @@ def test_port_sources_name_no_jax_import():
     assert _FORBIDDEN.search("import jax.numpy as jnp") and _FORBIDDEN.search("from dragonfly2_tpu.ops import x")
     assert _FORBIDDEN.search("import msgpack") and _FORBIDDEN.search("from msgpack import packb")
     assert not _FORBIDDEN.search("from dragonfly2_tpu_torch.ops import x")
+
+
+def test_port_sources_launch_no_reference_process():
+    offenders = [
+        f"{path.relative_to(REPO)}: {m.group(0)}"
+        for path in _port_sources()
+        for m in _LAUNCH.finditer(path.read_text())
+    ]
+    assert offenders == []
+    # the pattern catches a launch of the reference package, and spares the port's
+    assert _LAUNCH.search('cmd = [sys.executable, "-m", "dragonfly2_tpu.scheduler.server", "--port", "0"]')
+    assert _LAUNCH.search("['-m', 'dragonfly2_tpu.cli.dfstress']")
+    assert not _LAUNCH.search('[sys.executable, "-m", "dragonfly2_tpu_torch.scheduler.server"]')
+    assert not _LAUNCH.search("python -m dragonfly2_tpu.scheduler.server --evaluator plugin:x")
 
 
 def test_port_is_dflint_clean():

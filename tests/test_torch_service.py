@@ -332,5 +332,6 @@ def test_spans_nest_take_an_explicit_parent_and_record_errors():
     assert [s.name for s in tracer.finished()] == ["child", "root", "late"]
     assert child.parent_id == late.parent_id == root.span_id and root.parent_id == ""
     assert child.trace_id == late.trace_id == root.trace_id and len(root.trace_id) == 32
-    assert root.attrs == {"a": 1} and root.sampled and root.end >= root.start
+    # a sampled span carries its tracer's service name, as the reference's does
+    assert root.attrs == {"a": 1, "service": tracer.service} and root.sampled and root.end >= root.start
     assert (late.status, late.error) == ("error", "RuntimeError: boom") and child.status == "ok"
