@@ -161,7 +161,58 @@ Phases, each of which must hold or the run exits non-zero at once:
              gives it of the 32 task ids, and each scheduler's log holding the
              port evaluator's serving-mode line (mode base). Rounds/s,
              p50/p99, the shares and the host CPU.
-13. kernels  each kernel against its plain PyTorch version on the card, at the
+13. rollout  the live-model rollout in the port alone. (a) In process, at the
+             scheduler phase's cluster (16384 hosts, 8 seeded probes each,
+             waves from 32 drivers, cut to 32 tasks of 64 peers a wave): the
+             port's ManagerServer (real RPC on a free port, its sqlite file in
+             a temp dir), a SchedulerService with the port's MLEvaluator and
+             the port's ManagerLink on it, registered and ticked by hand
+             (_check_model, keepalive_once), its loader counted; models trained
+             on the card by the port's trainer (start_trainer, the wiring
+             phase's widths and cut) from the phase's own wave records through
+             the announcer, published to that manager; DRAGONFLY_NATIVE_SCORER
+             =0, so the link loads GNNScorer on the card. In order: a base wave;
+             ungated v1 installed by one tick, MODEL_SWAP_TOTAL{ok} +1, serving
+             mode torch, an ML wave served by it; the model_rollout row gated
+             (its gates set before any run), v2 from a second run published as
+             a candidate, attached, shadow-scored on a wave at sample rate 1.0,
+             reported, promoted and swapped by the fast path with no second
+             load; v3, a corrupt copy of v2's artifact under v2's digest,
+             refused as digest_mismatch, rejected in the registry, nothing
+             attached; the row's gates set to the default DivergenceGates,
+             then v2's artifact copied and wrapped to negate every score
+             (a broken head) published as a candidate, shadow-scored on a
+             wave, reported and rejected by the gate: the registry reads it
+             rejected with the gate's reasons, the candidate slot empties,
+             v2 serves on; v4, v2's artifact copied, wrapped to raise on every
+             round once armed, shadows clean, promotes, is armed, and the
+             health window rolls back to the warm v2: v2's scores on a fixed
+             round bit-equal to before, the registry v4 rejected and v2
+             active, MODEL_ROLLBACK_TOTAL +1; the manager stopped: two failed
+             keepalives set MANAGER_UNREACHABLE, the watch freezes, a wave
+             still scores on v2; the manager restarted on its port and file
+             and the link rejoins. Per step: seconds, card memory allocated,
+             swap counts by result, the merged shadow divergence; per wave
+             rounds/s. (b) Processes: python -m
+             dragonfly2_tpu_torch.manager.server and two python -m
+             dragonfly2_tpu_torch.scheduler.server --evaluator ml --manager
+             <addr> --federation-peers auto with 1 s keepalive, model-watch
+             and federation intervals (the address book refreshes every 60
+             s, as the reference's does), one with
+             DRAGONFLY_NATIVE_SCORER=0 (torch on the card), one native; each
+             prints its ready line within 60 s and is stopped when the phase
+             ends, whatever happens. v2's artifact published ungated through
+             RemoteManagerClient; within 60 s cluster_stats shows both
+             schedulers' frames serving torch and native; run_swarm at its
+             defaults cut to 5 s over both, no errors; within 30 s after it
+             each scheduler's federation_state (over RPC) holds remote edges
+             (a sync is push-pull, so one side's syncs move deltas both ways:
+             the scheduler that registered second finds the first in its
+             book at boot, while the first sees the second only at its next
+             60 s refresh), and the frames in cluster_stats carry both
+             schedulers' federation families, at least one naming its peer
+             with successful syncs.
+14. kernels  each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
@@ -211,7 +262,7 @@ from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import (
 )
 from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.cli import dfstress
-from dragonfly2_tpu_torch.models.features import BASE_WEIGHTS
+from dragonfly2_tpu_torch.models.features import BASE_WEIGHTS, FEATURE_DIM
 from dragonfly2_tpu_torch.models.weights import full_state_dict
 from dragonfly2_tpu_torch.parallel import distributed as dist_lib
 from dragonfly2_tpu_torch.parallel import mesh as meshlib
@@ -285,6 +336,17 @@ SCHED_DRIVERS, SCHED_SEED, SCHED_TRACED_TASKS = 32, 31, 32
 # cut from 10 s to 5 s, each scheduler's round share held to the ring's
 # placement of the task ids
 SWARM_SCHEDULERS, SWARM_BOOT_S, SWARM_DURATION_S, SWARM_TASKS, SWARM_SHARE_TOL = 2, 60.0, 5.0, 32, 0.15
+# the rollout phase: waves of ROLL_TASKS tasks (of SCHED_TASKS in the scheduler
+# phase) on its cluster; the shadow gate set in the model_rollout row before
+# any run, as tests/test_rollout.py sets it (two GNNs trained from the same
+# records need not agree on rankings; a wave of 32 tasks gives ~2,000 rounds,
+# twice the gate's min_rounds); the keepalive interval bounds the rejoin's
+# jitter; the process leg's deadlines
+ROLL_TASKS, ROLL_KEEPALIVE_S, ROLL_REJOIN_S, ROLL_FIXED_SEED = 32, 1.0, 30.0, 41
+ROLL_GATES = {"min_rounds": 1000, "min_topk_overlap": 0.0, "min_rank_corr": -1.0, "max_mean_abs_delta": 100.0}
+ROLL_BOOT_S, ROLL_ATTACH_S, ROLL_FEDERATION_S = 60.0, 60.0, 30.0
+SWAP_RESULTS = ("ok", "missing", "digest_mismatch", "load_error", "swap_error", "rpc_error", "rejected_version",
+                "rollback")
 REPO = pathlib.Path(__file__).resolve().parent
 # tests/test_ops.py's own tolerances for the Pallas kernel against XLA
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
@@ -1617,6 +1679,429 @@ def swarm() -> dict:
     return numbers
 
 
+class TamperedScorer:
+    """A card GNNScorer the rollout phase breaks on purpose, as
+    tests/test_rollout.py's VersionScorer does: ``negate`` turns every score
+    around (a broken head, for the shadow gate to reject); once ``armed``,
+    every round raises (v4, for the health window to roll back)."""
+
+    def __init__(self, inner, *, negate: bool = False):
+        self.inner = inner
+        self.negate = negate
+        self.armed = False
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _scored(self, method: str, args, kw):
+        if self.armed:
+            raise RuntimeError("injected scorer failure after the swap")
+        out = getattr(self.inner, method)(*args, **kw)
+        return -out if self.negate else out
+
+    def score(self, *args, **kw):
+        return self._scored("score", args, kw)
+
+    def score_rounds(self, *args, **kw):
+        return self._scored("score_rounds", args, kw)
+
+
+def swap_counts() -> dict:
+    return {r: sched_metrics.MODEL_SWAP_TOTAL.labels(result=r).value for r in SWAP_RESULTS}
+
+
+def card_mib() -> float:
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 2**20
+
+
+async def rollout_train(store: TelemetryStorage, trainer_addr: str, service, hostname: str) -> dict:
+    """The store's records through the port's announcer to the port's
+    trainer, which publishes to the port's manager; the GNN run's result."""
+    ann = TrainerAnnouncer(store, trainer_addr, hostname=hostname, scheduler_id=0)
+    try:
+        await ann.upload_once()
+        await asyncio.wait_for(service.wait_idle(), WIRING_DEADLINE_S)
+    finally:
+        await ann.stop()
+    gnn = (service.last_result or {}).get("gnn")
+    if not gnn:
+        raise AssertionError(f"the training run published no GNN: {service.last_result}")
+    return {**gnn, "version": service.last_result["version"]}
+
+
+async def rollout_inproc(tmp: pathlib.Path) -> dict:
+    """Leg (a): the port's ManagerServer, SchedulerService and ManagerLink in
+    one loop, the link ticked by hand (see the module docstring)."""
+    from dragonfly2_tpu_torch.manager.server import ManagerServer
+    from dragonfly2_tpu_torch.rpc.manager import RemoteManagerClient
+    from dragonfly2_tpu_torch.scheduler.manager_link import ManagerLink
+    from dragonfly2_tpu_torch.scheduler.rollout import HealthGates
+
+    steps: dict[str, dict] = {}
+    t_step = [time.perf_counter()]
+
+    def step(name: str, **numbers) -> None:
+        now = time.perf_counter()
+        numbers.update(seconds=now - t_step[0], card_mib=card_mib(), swaps=swap_counts(),
+                       serving=ev.serving_version, candidate=ev.candidate_version)
+        t_step[0] = now
+        steps[name] = numbers
+        print(f"  {name}: {numbers['seconds']:.2f} s, serving {numbers['serving']!r}, candidate "
+              f"{numbers['candidate']!r}, card {numbers['card_mib']:.1f} MiB allocated, swaps "
+              f"{ {k: v for k, v in numbers['swaps'].items() if v} }" + "".join(
+                  f", {k} {v}" for k, v in numbers.items()
+                  if k not in ("seconds", "card_mib", "swaps", "serving", "candidate")))
+
+    db = str(tmp / "manager.db")
+    manager = ManagerServer(db_path=db)
+    await manager.start()
+    mport = int(manager.address.rsplit(":", 1)[1])
+    mc = RemoteManagerClient(manager.address)
+    ev = MLEvaluator()
+    svc = SchedulerService(evaluator=ev, telemetry=TelemetryStorage(tmp / "telemetry"))
+    link = ManagerLink(svc, manager.address, hostname="chip-smoke-rollout", ip="127.0.0.1", port=1,
+                       keepalive_interval=ROLL_KEEPALIVE_S, shadow_sample_rate=1.0, health_gates=HealthGates())
+    loads: list[str] = []
+    # artifact path -> the TamperedScorer options its load is wrapped with,
+    # then the wrapper itself once loaded
+    tampered: dict[str, dict | TamperedScorer] = {}
+
+    def loader(path: str, digest: str = ""):
+        # the link's own loader, counted; a tampered version comes back wrapped
+        loads.append(path)
+        scorer, index = manager_link.load_scorer_verified(path, digest)
+        if path in tampered:
+            tampered[path] = scorer = TamperedScorer(scorer, **tampered[path])
+        return scorer, index
+
+    link._load_scorer_verified = loader
+    cfg = TrainerConfig(model_dir=str(tmp / "models"), gnn_steps=INGEST_GNN_STEPS, gnn_steps_per_call=10)
+    trainer, tsvc = await start_trainer(cfg, port=0, manager_addr=manager.address)
+    hosts = sched_hosts()
+    waves: dict[str, dict] = {}
+
+    async def wave(name: str) -> dict:
+        before = fallbacks()
+        out = await sched_wave(svc, hosts, f"roll-{name}", ROLL_TASKS)
+        after = fallbacks()
+        out["base_fallbacks"] = {r: after[r] - before[r] for r in FALLBACK_REASONS}
+        out["serving"] = serving_gauges()
+        waves[name] = out
+        print(f"    wave {name}: {out['rounds']} rounds, {out['rounds_per_s']:.1f} rounds/s, register to parents "
+              f"p50/p99 {out['register_to_parents_p50_ms']:.3f}/{out['register_to_parents_p99_ms']:.3f} ms, "
+              f"base fallbacks {out['base_fallbacks']}")
+        return out
+
+    def fixed_round() -> np.ndarray:
+        bundle = ev.serving_bundle
+        rng = np.random.default_rng(ROLL_FIXED_SEED)
+        n = len(bundle.node_index)
+        feats = rng.random((CANDIDATES, FEATURE_DIM), dtype=np.float32)
+        child = np.full(CANDIDATES, int(rng.integers(0, n)), np.int32)
+        parent = rng.integers(0, n, CANDIDATES, dtype=np.int32)
+        return bundle.scorer.score(feats, child=child, parent=parent)
+
+    async def registry(version: str) -> dict:
+        return (await mc.list_models(type="gnn", version=version))[0]
+
+    try:
+        t0 = time.perf_counter()
+        for h in hosts:
+            svc.announce_host(h)
+        targets = sched_probes(svc, hosts)
+        row = await link.manager.update_scheduler(link.hostname, link.ip, link.port)
+        link.scheduler_id, link.cluster_id = row["id"], row["scheduler_cluster_id"]
+        await link.dynconfig.load()
+        step("setup", hosts=len(hosts), probe_targets=targets, card_before_models_mib=card_mib())
+        base = await wave("base")
+        if base["base_fallbacks"]["no_scorer"] != base["rounds"]:
+            raise AssertionError(f"the base wave: {base['base_fallbacks']} for {base['rounds']} rounds")
+
+        # 1. ungated: v1 activates at publish, one tick installs it
+        v1 = await rollout_train(svc.telemetry, trainer.address, tsvc, "chip-smoke-rollout")
+        swaps0 = swap_counts()
+        await link._check_model()
+        if ev.serving_version != v1["version"] or swap_counts()["ok"] != swaps0["ok"] + 1:
+            raise AssertionError(f"v1 not installed: serving {ev.serving_version!r}, swaps {swap_counts()}")
+        if serving_gauges() != {m: float(m == "torch") for m in SERVING_MODES}:
+            raise AssertionError(f"v1 serves as {serving_gauges()}, not torch")
+        served = await wave("v1")
+        if served["base_fallbacks"]["no_scorer"] or served["base_fallbacks"]["scorer_error"]:
+            raise AssertionError(f"the v1 wave fell back to base: {served['base_fallbacks']}")
+        step("ungated", v1=v1["version"], loads=len(loads))
+
+        # 2. gated: v2 from a second run is published as a candidate,
+        # shadow-scored on a wave at sample rate 1.0, promoted and swapped in
+        # by the fast path (no second load)
+        await mc.set_config("model_rollout", {"enabled": True, "types": ["gnn"], "auto_promote": True,
+                                              "gates": ROLL_GATES})
+        v2 = await rollout_train(svc.telemetry, trainer.address, tsvc, "chip-smoke-rollout")
+        if (await registry(v2["version"]))["state"] != "candidate":
+            raise AssertionError(f"v2 registered as {(await registry(v2['version']))['state']}, not candidate")
+        await link._check_model()
+        if ev.candidate_version != v2["version"]:
+            raise AssertionError(f"v2 not attached as the candidate: {ev.candidate_version!r}")
+        loads_at_attach = len(loads)
+        step("candidate attached", v2=v2["version"], loads=loads_at_attach)
+        await wave("shadow v2")
+        await link._check_model()
+        agg = (await registry(v2["version"]))["rollout"].get("aggregate", {})
+        divergence = {k: agg.get(k) for k in ("rounds", "uncovered", "errors", "topk_overlap_mean",
+                                              "rank_corr_mean", "abs_delta_mean", "abs_delta_p99")}
+        if ev.serving_version != v2["version"] or len(loads) != loads_at_attach:
+            raise AssertionError(f"v2 not promoted by the fast path: serving {ev.serving_version!r}, "
+                                 f"loads {len(loads)} (at attach {loads_at_attach}), shadow {divergence}")
+        v2_scores = fixed_round()
+        step("promoted", divergence=divergence, loads=len(loads))
+
+        # 3. a corrupt copy of v2's artifact under v2's digest: refused as
+        # digest_mismatch, rejected in the registry, nothing attached
+        bad = shutil.copytree(v2["artifact"], tmp / "v3-corrupt")
+        (bad / "params.msgpack").write_bytes(b"CORRUPTED" + (bad / "params.msgpack").read_bytes()[9:])
+        before = swap_counts()
+        await mc.publish_model("gnn", "v3-corrupt", artifact_path=str(bad), artifact_digest=v2["digest"])
+        await link._check_model()
+        state3 = (await registry("v3-corrupt"))["state"]
+        if swap_counts()["digest_mismatch"] != before["digest_mismatch"] + 1 or state3 != "rejected" \
+                or ev.candidate_version or ev.serving_version != v2["version"]:
+            raise AssertionError(f"the corrupt candidate: swaps {swap_counts()}, registry {state3}, "
+                                 f"candidate {ev.candidate_version!r}, serving {ev.serving_version!r}")
+        step("corrupt refused", registry=state3)
+
+        # 3b. the default DivergenceGates: v2's artifact copied and wrapped to
+        # negate every score (a broken head) shadows a wave and the gate
+        # rejects it; the slot empties and v2 serves on
+        await mc.set_config("model_rollout", {"enabled": True, "types": ["gnn"], "auto_promote": True})
+        inverted_path = str(shutil.copytree(v2["artifact"], tmp / "v3b-inverted"))
+        tampered[inverted_path] = {"negate": True}
+        await mc.publish_model("gnn", "v3b-inverted", artifact_path=inverted_path, artifact_digest=v2["digest"])
+        await link._check_model()
+        if ev.candidate_version != "v3b-inverted":
+            raise AssertionError(f"the inverted candidate not attached: {ev.candidate_version!r}")
+        await wave("shadow inverted")
+        await link._check_model()
+        row3b = await registry("v3b-inverted")
+        agg = row3b["rollout"].get("aggregate", {})
+        divergence3b = {k: agg.get(k) for k in ("rounds", "uncovered", "errors", "topk_overlap_mean",
+                                                "rank_corr_mean", "abs_delta_mean", "abs_delta_p99")}
+        reasons3b = row3b["rollout"].get("rejected_reason", "")
+        link._drain_retired()
+        if row3b["state"] != "rejected" or not reasons3b or ev.candidate_version \
+                or ev.serving_version != v2["version"]:
+            raise AssertionError(f"the gate kept the inverted candidate: registry {row3b['state']} "
+                                 f"({reasons3b!r}), candidate {ev.candidate_version!r}, serving "
+                                 f"{ev.serving_version!r}, shadow {divergence3b}")
+        step("gate rejected", divergence=divergence3b, reasons=reasons3b, draining=len(link._draining))
+
+        # 4. v4 (v2's artifact copied) shadows clean, promotes, then raises on
+        # every round: the health window rolls back to the warm v2
+        v4_path = str(shutil.copytree(v2["artifact"], tmp / "v4-raising"))
+        tampered[v4_path] = {}
+        await mc.publish_model("gnn", "v4-raising", artifact_path=v4_path, artifact_digest=v2["digest"])
+        await link._check_model()
+        await wave("shadow v4")
+        rollbacks = sched_metrics.MODEL_ROLLBACK_TOTAL.value
+        await link._check_model()
+        agg = (await registry("v4-raising"))["rollout"].get("aggregate", {})
+        divergence4 = {k: agg.get(k) for k in ("rounds", "uncovered", "errors", "topk_overlap_mean",
+                                               "rank_corr_mean", "abs_delta_mean", "abs_delta_p99")}
+        if ev.serving_version != "v4-raising" or link._warm_prev is None \
+                or link._warm_prev.version != v2["version"]:
+            raise AssertionError(f"v4 not swapped in over a warm v2: serving {ev.serving_version!r}")
+        step("v4 promoted", divergence=divergence4, warm_previous=link._warm_prev.version)
+        tampered[v4_path].armed = True
+        regressed = await wave("v4 raising")
+        if regressed["base_fallbacks"]["scorer_error"] != regressed["rounds"]:
+            raise AssertionError(f"the raising wave: {regressed['base_fallbacks']}")
+        await link._check_model()
+        reg2, reg4 = (await registry(v2["version"]))["state"], (await registry("v4-raising"))["state"]
+        after_scores = fixed_round()
+        if ev.serving_version != v2["version"] or reg2 != "active" or reg4 != "rejected" \
+                or sched_metrics.MODEL_ROLLBACK_TOTAL.value != rollbacks + 1:
+            raise AssertionError(f"no rollback: serving {ev.serving_version!r}, registry v2 {reg2}, v4 {reg4}")
+        if after_scores.tobytes() != v2_scores.tobytes():
+            raise AssertionError("v2's scores changed across the rollback")
+        link._drain_retired()
+        step("rolled back", registry={"v2": reg2, "v4": reg4}, draining=len(link._draining))
+
+        # 5. outage: the manager stops; two failed keepalives declare it, the
+        # watch freezes and rounds still score on v2; it restarts on the same
+        # port and database and the link rejoins
+        await manager.stop()
+        kept = ev.serving_bundle
+        ok = [await link.keepalive_once() for _ in range(2)]
+        if any(ok) or not link.manager_unreachable or sched_metrics.MANAGER_UNREACHABLE.value != 1.0:
+            raise AssertionError(f"the outage was not declared: keepalives {ok}")
+        try:
+            await link._check_model()
+            frozen = False
+        except Exception:  # the registry is unreachable: the tick raises, deciding nothing
+            frozen = True
+        if not frozen or ev.serving_bundle is not kept:
+            raise AssertionError("the serving bundle changed in the outage")
+        dark = await wave("outage")
+        if any(dark["base_fallbacks"][r] for r in ("no_scorer", "scorer_error", "degraded")):
+            raise AssertionError(f"the outage wave fell back to base: {dark['base_fallbacks']}")
+        manager = ManagerServer(db_path=db, port=mport)
+        await manager.start()
+        deadline = time.monotonic() + ROLL_REJOIN_S
+        while not await link.keepalive_once():
+            if time.monotonic() > deadline:
+                raise AssertionError("the link did not rejoin the restarted manager")
+            await asyncio.sleep(0.5)
+        await link._check_model()
+        if link.manager_unreachable or ev.serving_version != v2["version"]:
+            raise AssertionError(f"after the rejoin: unreachable {link.manager_unreachable}, "
+                                 f"serving {ev.serving_version!r}")
+        step("outage and rejoin", rounds_scored_in_outage=dark["rounds"])
+        return {"steps": steps, "waves": waves, "loads": len(loads), "v1": v1["version"], "v2": v2["version"],
+                "shadow_divergence": divergence, "artifact": v2["artifact"], "digest": v2["digest"]}
+    finally:
+        await stop_trainer(trainer, tsvc)
+        await link.stop()
+        await mc.close()
+        await manager.stop()
+        svc.close()
+
+
+def rollout_processes(tmp: pathlib.Path, artifact: str, digest: str) -> dict:
+    """Leg (b): the port's manager and two of the port's schedulers as
+    processes, one serving on the card and one natively; v2's artifact
+    published ungated; frames, a swarm and federation both ways."""
+    from dragonfly2_tpu_torch.rpc.manager import RemoteManagerClient
+    from dragonfly2_tpu_torch.rpc.scheduler import RemoteSchedulerClient
+
+    t_leg = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(REPO), "DRAGONFLY_TS_INTERVAL": "0.5"}
+    procs: list[subprocess.Popen] = []
+    logs: list[pathlib.Path] = []
+
+    def spawn(name: str, args: list[str], extra_env: dict) -> subprocess.Popen:
+        logs.append(tmp / f"{name}.log")
+        with open(logs[-1], "w") as err:
+            procs.append(subprocess.Popen([sys.executable, "-m", *args], cwd=tmp, env={**env, **extra_env},
+                                          stdout=subprocess.PIPE, stderr=err, text=True))
+        return procs[-1]
+
+    try:
+        deadline = time.monotonic() + ROLL_BOOT_S
+        mgr = spawn("manager", ["dragonfly2_tpu_torch.manager.server", "--host", "127.0.0.1", "--port", "0",
+                                "--db", str(tmp / "manager.db")], {})
+        maddr = proc_lib.ready_address(mgr, "manager ready", deadline).removeprefix("rpc=")
+        flags = ["--host", "127.0.0.1", "--port", "0", "--evaluator", "ml", "--manager", maddr,
+                 "--federation-peers", "auto", "--keepalive-interval", "1", "--model-watch-interval", "1",
+                 "--federation-interval", "1"]
+        engines = {"sch-torch": {"DRAGONFLY_NATIVE_SCORER": "0"}, "sch-native": {"DRAGONFLY_NATIVE_SCORER": "1"}}
+        scheds = {name: spawn(name, ["dragonfly2_tpu_torch.scheduler.server", *flags, "--hostname", name], e)
+                  for name, e in engines.items()}
+        addrs = {name: proc_lib.ready_address(p, "SCHEDULER_READY", deadline) for name, p in scheds.items()}
+        boot_s = time.perf_counter() - t_leg
+
+        async def drive() -> dict:
+            mc = RemoteManagerClient(maddr)
+            out: dict = {}
+            try:
+                t0 = time.perf_counter()
+                row = await mc.publish_model("gnn", "v-proc", artifact_path=artifact, artifact_digest=digest)
+                if row["state"] != "active":
+                    raise AssertionError(f"the ungated publish left {row['state']}")
+                want = {"sch-torch": "torch", "sch-native": "native"}
+                end = time.monotonic() + ROLL_ATTACH_S
+                while True:
+                    view = await mc.cluster_stats()
+                    modes = {m["hostname"]: m["frame"].get("serving_mode") for m in view["members"]}
+                    if all(modes.get(k) == v for k, v in want.items()):
+                        break
+                    if time.monotonic() > end:
+                        raise AssertionError(f"frames by the deadline: {modes}")
+                    await asyncio.sleep(0.25)
+                out["published_to_both_frames_s"] = time.perf_counter() - t0
+                out["frames"] = {m["hostname"]: m["frame"] for m in view["members"]}
+                out["swarm"] = await dfstress.run_swarm(list(addrs.values()), duration=SWARM_DURATION_S)
+                if out["swarm"]["extra"]["errors"] or not out["swarm"]["extra"]["rounds"]:
+                    raise AssertionError(f"the swarm: {out['swarm']['extra']}")
+                t0 = time.perf_counter()
+                end = time.monotonic() + ROLL_FEDERATION_S
+                clients = {k: RemoteSchedulerClient(a) for k, a in addrs.items()}
+                try:
+                    while True:
+                        # remote edges on both sides: deltas arrived both
+                        # ways (a sync is push-pull); the frames carry each
+                        # side's federation families, and the side whose book
+                        # names the other syncs with it
+                        states = {k: await c.federation_state() for k, c in clients.items()}
+                        frames = {m["hostname"]: m["frame"] for m in (await mc.cluster_stats())["members"]}
+                        fed = {k: (frames.get(k, {}).get("federation_peers"),
+                                   frames.get(k, {}).get("rates", {}).get("federation_syncs_ok_per_s"))
+                               for k in states}
+                        if all(s["remote_edges"] > 0 for s in states.values()) \
+                                and all(peers is not None for peers, _ in fed.values()) \
+                                and any(peers == 1 and (ok or 0) > 0 for peers, ok in fed.values()):
+                            break
+                        if time.monotonic() > end:
+                            raise AssertionError(f"federation by the deadline: {states}, frames {fed}")
+                        await asyncio.sleep(0.25)
+                finally:
+                    for c in clients.values():
+                        await c.close()
+                out["swarm_to_federated_s"] = time.perf_counter() - t0
+                out["federation"] = {k: {"remote_edges": s["remote_edges"], "local_edges": s["local_edges"],
+                                         "frame_peers": fed[k][0], "frame_syncs_ok_per_s": fed[k][1]}
+                                     for k, s in states.items()}
+            finally:
+                await mc.close()
+            return out
+
+        out = asyncio.run(drive())
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            p.stdout.close()
+    ex = out["swarm"]["extra"]
+    out.update(boot_s=boot_s, schedulers=addrs, wall_s=time.perf_counter() - t_leg)
+    print(f"  processes: manager and two schedulers up in {boot_s:.1f} s; published to both frames "
+          f"{out['published_to_both_frames_s']:.2f} s (serving modes "
+          f"{ {k: f.get('serving_mode') for k, f in out['frames'].items()} }); swarm {out['swarm']['value']} "
+          f"rounds/s, {ex['rounds']} rounds, {ex['errors']} errors, p50/p99 {ex['p50_ms']}/{ex['p99_ms']} ms; "
+          f"federated {out['swarm_to_federated_s']:.2f} s after it: "
+          f"{ {k: tuple(v.values()) for k, v in out['federation'].items()} } "
+          f"(remote edges, local edges, peers and ok syncs/s in its frame); leg {out['wall_s']:.1f} s")
+    return out
+
+
+def rollout() -> dict:
+    """The live-model rollout in the port alone: leg (a) in process, leg (b)
+    as processes (see the module docstring)."""
+    t_phase = time.perf_counter()
+    old = os.environ.get("DRAGONFLY_NATIVE_SCORER")
+    os.environ["DRAGONFLY_NATIVE_SCORER"] = "0"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = pathlib.Path(tmp)
+            (tmp / "a").mkdir()
+            (tmp / "b").mkdir()
+            inproc = asyncio.run(rollout_inproc(tmp / "a"))
+            if old is None:
+                del os.environ["DRAGONFLY_NATIVE_SCORER"]
+            else:
+                os.environ["DRAGONFLY_NATIVE_SCORER"] = old
+            procs = rollout_processes(tmp / "b", inproc.pop("artifact"), inproc.pop("digest"))
+    finally:
+        if old is None:
+            os.environ.pop("DRAGONFLY_NATIVE_SCORER", None)
+        else:
+            os.environ["DRAGONFLY_NATIVE_SCORER"] = old
+    return {"in_process": inproc, "processes": procs, "host_cpu": host_cpu(),
+            "wall_s": time.perf_counter() - t_phase}
+
+
 def edge_case_inputs() -> dict:
     """Named (h, neighbors, mask) CPU inputs that each kernel must get right."""
     rng = np.random.default_rng(0)
@@ -1979,6 +2464,16 @@ def main() -> int:
         if any(seen.values()):
             raise AssertionError(f"the swarm path launched a kernel it does not call: {seen}")
         print(json.dumps({"swarm": numbers, "card": card}))
+
+    with phase("rollout"):
+        zero_counts()
+        numbers = rollout()
+        # no kernel is on this path: the scheduler scores through GNNScorer's
+        # or the C++ scorer's plain ops, and the trainer runs SAGELayer's
+        numbers["kernel_launches"] = seen = counts()
+        if any(seen.values()):
+            raise AssertionError(f"the rollout path launched a kernel it does not call: {seen}")
+        print(json.dumps({"rollout": numbers, "card": card}))
 
     with phase("kernels"):
         g = cluster.graph.to("cuda")

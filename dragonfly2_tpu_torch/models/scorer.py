@@ -116,6 +116,14 @@ class GNNScorer:
     def ready(self) -> bool:
         return self._z is not None
 
+    def close(self) -> None:
+        """Drop the cached tables and the model, so that a retired scorer
+        frees its card memory even while another object (a micro-batcher, a
+        drained bundle) still holds it. ``ModelBundle.close`` calls this once
+        no round is inside the bundle; scoring after it raises."""
+        self._z = self._uc = self._up = None
+        self._model = None
+
     @torch.inference_mode()
     def score(
         self, pair_feats: np.ndarray, *, child: np.ndarray, parent: np.ndarray

@@ -3,7 +3,8 @@
 The port's own copy of the counter, gauge, histogram and registry of
 dragonfly2_tpu/observability/metrics.py: what the trainer's
 ``dragonfly_train_*`` families and the scheduler's ``dragonfly_scheduler_*``
-and ``dragonfly_loop_*`` families need. The HTTP handler is not copied: the
+and ``dragonfly_loop_*`` families need, and what the time-series recorder
+(observability/timeseries.py) walks. The HTTP handler is not copied: the
 port serves no /metrics, and a reference scheduler's /metrics renders only
 the reference's registry.
 
@@ -93,6 +94,12 @@ class Counter(_Metric):
         else:
             self.labels().inc(amount)
 
+    @property
+    def value(self) -> float:
+        with self._lock:  # a thread creating a new child resizes the dict
+            children = list(self._children.values())
+        return sum(c.value for c in children)  # type: ignore[attr-defined]
+
     class _Child:
         __slots__ = ("value", "_lock")
 
@@ -129,14 +136,31 @@ class Gauge(_Metric):
     def set(self, value: float, **labels: str) -> None:
         self.labels(**labels).set(value)
 
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        self.labels(**labels).inc(amount)
+
+    def dec(self, amount: float = 1.0, **labels: str) -> None:
+        self.labels(**labels).inc(-amount)
+
+    @property
+    def value(self) -> float:
+        with self._lock:  # a thread creating a new child resizes the dict
+            children = list(self._children.values())
+        return sum(c.value for c in children)  # type: ignore[attr-defined]
+
     class _Child:
-        __slots__ = ("value",)
+        __slots__ = ("value", "_lock")
 
         def __init__(self) -> None:
             self.value = 0.0
+            self._lock = threading.Lock()
 
         def set(self, value: float) -> None:
             self.value = float(value)  # dflint: disable=DF023 a gauge set is one STORE (no read-modify-write), atomic under the GIL
+
+        def inc(self, amount: float = 1.0) -> None:
+            with self._lock:  # += is a preemptible read-modify-write
+                self.value += amount
 
     def render(self) -> Iterable[str]:
         yield f"# HELP {self.name} {self.help}"
@@ -255,6 +279,16 @@ class MetricsRegistry:
         buckets: Sequence[float] = _DEFAULT_BUCKETS,
     ) -> Histogram:
         return self._register(Histogram(self._name(subsystem, name), help_, labels, buckets))  # type: ignore[return-value]
+
+    def get(self, full_name: str) -> _Metric | None:
+        return self._metrics.get(full_name)
+
+    def families(self) -> list[_Metric]:
+        """Snapshot of the registered families (the time-series recorder walks
+        this every sample tick; a family registered mid-walk must not raise
+        under it)."""
+        with self._lock:
+            return list(self._metrics.values())
 
     def render_text(self) -> str:
         lines: list[str] = []

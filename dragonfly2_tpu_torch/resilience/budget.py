@@ -30,10 +30,11 @@ Clock-injected (utils/clock.py) so the swarm simulator and chaos tests drive
 refill in virtual time. Thread-safe: conductor piece workers consult the same
 bucket the loop's rpc clients do.
 
-Not ported: the reference's process-wide registry (``budget_for``,
-``reset_budgets``, ``budget_stats``) behind ``RpcClient(target_class=)``. In
-the reference only the daemon and the manager link pass a target class; the
-port has neither, so its callers hand a budget over explicitly.
+The process-wide registry's ``budget_for`` is what
+``RpcClient(target_class=)`` draws from: every client naming one class
+spends from the same bucket (the scheduler's ManagerLink passes
+``"manager"``). Not ported: the reference's ``reset_budgets`` and
+``budget_stats``, which no caller of the port needs.
 """
 
 from __future__ import annotations
@@ -132,4 +133,32 @@ class RetryBudget:
                     max(0.0, self._charged_until - self._clock.monotonic()), 3
                 ),
             }
+
+
+# ---------------------------------------------------------------------------
+# process-wide registry: every call site retrying against "scheduler" spends
+# from the SAME bucket — that sharing is the whole point
+
+_budgets: dict[str, RetryBudget] = {}
+_registry_lock = threading.Lock()
+
+
+def budget_for(
+    target_class: str,
+    *,
+    rate: float = DEFAULT_RATE,
+    burst: float = DEFAULT_BURST,
+    clock: clockmod.Clock | None = None,
+) -> RetryBudget:
+    """The process-wide budget for a target class, created on first use
+    (rate/burst/clock apply only at creation)."""
+    b = _budgets.get(target_class)
+    if b is None:
+        with _registry_lock:
+            b = _budgets.get(target_class)
+            if b is None:
+                b = _budgets[target_class] = RetryBudget(
+                    target_class, rate=rate, burst=burst, clock=clock
+                )
+    return b
 

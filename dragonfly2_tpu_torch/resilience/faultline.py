@@ -13,11 +13,11 @@ reference at the same places:
                 before verification (blocking latency)
                 trainer/artifacts.artifact_digest, each file's       truncate corrupt
                 bytes before they are hashed
+    model.swap  scheduler/manager_link.ManagerLink._install,   latency error
+                before the new serving bundle is built
 
 The reference's other points sit in modules the port has not copied yet
-(the daemon's fetch, source and storage paths). ``model.swap`` fires in
-the scheduler's ``ManagerLink`` swap, which the port has not copied yet
-either, so it has no site here.
+(the daemon's fetch, source and storage paths).
 
 Fault kinds:
     latency   sleep `param` seconds (default 0.05) before proceeding

@@ -22,7 +22,8 @@ the connection drops, and the reference client's call semantics: up to
 ``resource_exhausted``, paced by a ``BackoffPolicy``; a per-client
 ``CircuitBreaker`` (``.breaker``: the per-target breaker, one client being
 one address) fed exactly as the reference feeds it; an optional
-``RetryBudget`` (``retry_budget=``) consulted before each retry and pre-charged by a
+``RetryBudget`` (``retry_budget=``, or the process-wide one of a
+``target_class=``) consulted before each retry and pre-charged by a
 server's ``retry_after_s``; and a timeout of min(per-call timeout, the
 caller's ``resilience.deadline`` remaining), ``deadline_exceeded`` past it.
 An address is TCP only when it ends in ``:<digits>``; any other address is
@@ -49,6 +50,7 @@ from dragonfly2_tpu_torch.resilience import deadline as dl
 from dragonfly2_tpu_torch.resilience import faultline
 from dragonfly2_tpu_torch.resilience.backoff import BackoffPolicy
 from dragonfly2_tpu_torch.resilience.breaker import CircuitBreaker
+from dragonfly2_tpu_torch.resilience.budget import budget_for
 from dragonfly2_tpu_torch.trainer._msgpack import packb, unpackb
 from dragonfly2_tpu_torch.utils.ratelimit import TokenBucket
 
@@ -107,6 +109,7 @@ class RpcServer:
         self.unix_path = unix_path
         self._server: asyncio.AbstractServer | None = None
         self._conns: set[asyncio.StreamWriter] = set()
+        self._stopping = False
         self._bucket = TokenBucket(qps_limit, qps_burst)
         self.register("_ping", self._ping)
 
@@ -122,6 +125,7 @@ class RpcServer:
             self.register(name, getattr(obj, name))
 
     async def start(self) -> None:
+        self._stopping = False
         if self.unix_path:
             self._server = await asyncio.start_unix_server(self._on_conn, path=self.unix_path)
         else:
@@ -130,9 +134,11 @@ class RpcServer:
 
     async def stop(self) -> None:
         if self._server is not None:
+            self._stopping = True
             self._server.close()
             # drop live connections too: wait_closed() waits for their
-            # handlers, which otherwise run until the peer hangs up
+            # handlers, which otherwise run until the peer hangs up (one
+            # accepted just before close() drops itself in _on_conn)
             for w in list(self._conns):
                 w.close()
             await self._server.wait_closed()
@@ -143,6 +149,9 @@ class RpcServer:
         return self.unix_path or f"{self.host}:{self.port}"
 
     async def _on_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+        if self._stopping:
+            writer.close()  # accepted as stop() began, which waits for it
+            return
         tasks: set[asyncio.Task] = set()
         self._conns.add(writer)
         try:
@@ -215,11 +224,16 @@ class RpcClient:
         backoff: BackoffPolicy | None = None,
         breaker: CircuitBreaker | None = None,
         retry_budget=None,
+        target_class: str | None = None,
     ):
         self.address = address
         self.timeout = timeout
         self.retries = retries
-        # None: retries unbudgeted (the reference's default with no target class)
+        # a target class ("scheduler", "manager", ...) shares one process-wide
+        # retry budget among every client retrying against it; with neither a
+        # budget nor a class, retries are unbudgeted
+        if retry_budget is None and target_class:
+            retry_budget = budget_for(target_class)
         self.retry_budget = retry_budget
         self.backoff = backoff or BackoffPolicy(base=0.2, multiplier=2.0, max_delay=5.0, jitter=0.5)
         # one client is one address, so this breaker is the per-target one

@@ -7,10 +7,9 @@ results by outcome, scheduling round latency, traffic, live resource gauges,
 the round dispatcher, the native round driver and mirror, the ml evaluator's
 serving mode and fallbacks, shadow scoring, the federation exchange, the
 brownout ladder, and ``ServiceMetrics``, the registry-scoped twins one
-``SchedulerService`` owns. The ManagerLink's swap and rollout families, the
-federation loop's and the manager-outage gauge come with the slice that
-ports those. ``ML_SERVING_MODE`` has a ``torch`` label of its own beside the
-reference's (the port's GNNScorer).
+``SchedulerService`` owns, the ManagerLink's swap, rollout and
+manager-outage families and the federation loop's. ``ML_SERVING_MODE`` has a
+``torch`` label of its own beside the reference's (the port's GNNScorer).
 
 The port serves no /metrics, and a reference scheduler's /metrics renders only
 the reference's registry: these families are read in process
@@ -139,6 +138,36 @@ ML_SERVING_MODE = _r.gauge(
     subsystem="scheduler",
     labels=("mode",),
 )
+# Live-model safe rollout (the ManagerLink's model watch): hot-swap outcomes, shadow-scoring
+# divergence, and rollback accounting. model_swap_total{result} makes the
+# previously-silent _check_model failure paths (artifact missing, digest
+# mismatch, load error) first-class signals instead of buried warnings.
+MODEL_SWAP_TOTAL = _r.counter(
+    "model_swap_total",
+    "Model hot-swap attempts by outcome (ok|missing|digest_mismatch|"
+    "load_error|swap_error|rejected_version|rollback)",
+    subsystem="scheduler", labels=("result",),
+)
+# One-hot over the LAST swap error kind (cleared to all-zero on a successful
+# swap) — the "what is currently wrong" companion to the rate counter above.
+MODEL_SWAP_LAST_ERROR = _r.gauge(
+    "model_swap_last_error",
+    "Most recent model-swap failure kind (1 = this was the last error; "
+    "all zero after a successful swap)",
+    subsystem="scheduler", labels=("error",),
+)
+MODEL_ROLLBACK_TOTAL = _r.counter(
+    "model_rollback_total",
+    "Automatic rollbacks to the previous serving model after a post-swap "
+    "health regression",
+    subsystem="scheduler",
+)
+MODEL_ROLLOUT_STATE = _r.gauge(
+    "model_rollout_state",
+    "Scheduler-local rollout activity (1 = active): idle | shadowing | "
+    "health_watch",
+    subsystem="scheduler", labels=("state",),
+)
 ML_BASE_FALLBACK_TOTAL = _r.counter(
     "ml_base_fallback_total",
     "Scheduling rounds served by the base evaluator while ml was selected",
@@ -169,11 +198,14 @@ SHADOW_RANK_CORR = _r.gauge(
     subsystem="scheduler",
 )
 # Scheduler federation: push-pull topology/bandwidth gossip between ring
-# members (the service serves the exchange; the gossip loop and its sync
-# families come with the port's federation.py). Sent/received counts are DELTA entries (edges +
+# members (scheduler/federation.py). Sent/received counts are DELTA entries (edges +
 # bandwidth pairs), so steady-state rates near zero are the health signal
 # that watermarking works — O(all edges) payloads every tick would show up
 # here immediately.
+FEDERATION_SYNCS_TOTAL = _r.counter(
+    "federation_syncs_total", "Federation sync rounds by outcome",
+    subsystem="scheduler", labels=("result",),
+)
 FEDERATION_DELTAS_SENT_TOTAL = _r.counter(
     "federation_deltas_sent_total",
     "Topology/bandwidth delta entries pushed or served to peer schedulers",
@@ -182,6 +214,15 @@ FEDERATION_DELTAS_SENT_TOTAL = _r.counter(
 FEDERATION_DELTAS_APPLIED_TOTAL = _r.counter(
     "federation_deltas_applied_total",
     "Peer delta entries merged into the local topology/bandwidth view",
+    subsystem="scheduler",
+)
+FEDERATION_PEERS_GAUGE = _r.gauge(
+    "federation_peers", "Peer schedulers currently in the sync set",
+    subsystem="scheduler",
+)
+FEDERATION_LAST_SYNC_TIMESTAMP = _r.gauge(
+    "federation_last_sync_timestamp_seconds",
+    "Unix time of the last successful federation sync (0 = never)",
     subsystem="scheduler",
 )
 # Brownout ladder: the current degradation rung, 0 = normal
@@ -201,6 +242,16 @@ ADMISSION_SHED_TOTAL = _r.counter(
     subsystem="scheduler", labels=("priority",),
 )
 
+# Manager-outage autonomy: 1 while the manager link is in
+# declared blackout mode — keepalives failing (2+ consecutive) or the
+# rollout watch unable to reach the registry. Scheduling and downloads
+# continue from cached state; the rollout watch is frozen.
+MANAGER_UNREACHABLE = _r.gauge(
+    "manager_unreachable",
+    "1 while the manager link is in autonomous (blackout) mode: cached "
+    "dynconfig serves, rollout watch frozen, keepalives keep probing",
+    subsystem="scheduler",
+)
 
 class ServiceMetrics:
     """Registry-scoped serving-health twins for ONE SchedulerService.

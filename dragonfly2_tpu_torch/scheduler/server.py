@@ -16,15 +16,17 @@ uploads them to ``--trainer`` through the port's announcer, sweeps the
 resource pool every ``gc.interval`` seconds, and runs the loop-health
 monitor and the brownout ladder, as the reference does at every boot.
 
+With ``--manager`` it runs the port's ManagerLink (registration,
+keepalives carrying the stats frame, dynconfig, the preheat job loop and the
+model watch with shadow scoring, promotion and health rollback);
+``--federation-peers`` takes a static list, or ``auto`` to follow the
+manager's address book (refreshed every 60 s, as the reference does). The
+time-series recorder and the alert engine always start: the stats frames
+read them.
+
 Refused, never ignored (exit 2, naming the ROADMAP.md item that ports
-them): ``--manager`` and the flags only a ManagerLink reads
-(``--keepalive-interval``, ``--model-watch-interval``,
-``--shadow-sample-rate``, ``--idc``, ``--location``, a non-default
-``rollout:`` section), ``--federation-peers`` and ``--federation-interval``,
-``--metrics-port`` (the debug server), and a ``tracing:`` section that names
-an exporter. The reference's timeseries recorder and alert engine are not
-started: they feed only the ManagerLink's stats frames, the debug server and
-dftop, and come with the slice that ports those.
+them): ``--metrics-port`` (the debug server) and a ``tracing:`` section that
+names an exporter.
 """
 
 from __future__ import annotations
@@ -52,9 +54,18 @@ async def run_scheduler(
     telemetry_dir: str | None = None,
     evaluator: str = "base",
     gc_interval: float = 10.0,
+    manager_addr: str | None = None,
+    keepalive_interval: float | None = None,
     trainer_addr: str | None = None,
     trainer_interval: float | None = None,
+    model_watch_interval: float | None = None,
+    shadow_sample_rate: float | None = None,
+    health_gates=None,
+    federation_peers: str | None = None,
+    federation_interval: float | None = None,
     hostname: str = "",
+    idc: str = "",
+    location: str = "",
     scheduling_config=None,
     gc_policy=None,
     degradation_budgets: dict | None = None,
@@ -94,7 +105,75 @@ async def run_scheduler(
         degradation.attach_dispatcher(service.scheduling.dispatcher)
     service.attach_degradation(degradation)
     degradation.start()
+    # metrics plane: the time-series recorder and the alert engine are always
+    # on (one registry walk per ~2 s), so the history the stats frames and the
+    # rollout health read covers an incident from its start
+    from dragonfly2_tpu_torch.observability.alerts import default_engine
+    from dragonfly2_tpu_torch.observability.timeseries import default_recorder
 
+    recorder = default_recorder()
+    recorder.start()
+    alert_engine = default_engine()
+    alert_engine.start()
+
+    link = None
+    if manager_addr:
+        from dragonfly2_tpu_torch.scheduler.manager_link import ManagerLink
+
+        link_kw = {}
+        if keepalive_interval is not None:
+            link_kw["keepalive_interval"] = keepalive_interval
+        if model_watch_interval is not None:
+            link_kw["model_watch_interval"] = model_watch_interval
+        if shadow_sample_rate is not None:
+            link_kw["shadow_sample_rate"] = shadow_sample_rate
+        if health_gates is not None:
+            link_kw["health_gates"] = health_gates
+        link = ManagerLink(
+            service, manager_addr,
+            hostname=hostname, ip=host, port=server.port,
+            idc=idc, location=location,
+            recorder=recorder, alert_engine=alert_engine, **link_kw,
+        )
+        try:
+            await link.start()
+        except Exception:
+            # the scheduler still serves its cluster when the manager is
+            # down; the half-started link is torn down so no loop leaks
+            logger.exception("manager link failed to start; continuing standalone")
+            try:
+                await link.stop()
+            except Exception as stop_err:
+                logger.debug("half-started link teardown failed: %s", stop_err)
+            link = None
+    # federation: a static peer list, or "auto" to follow the manager's
+    # address book (a ring member joining or leaving starts or stops syncing
+    # within one dynconfig refresh)
+    federation = None
+    if federation_peers:
+        from dragonfly2_tpu_torch.scheduler.federation import (
+            DEFAULT_SYNC_INTERVAL,
+            FederationSync,
+        )
+
+        auto = federation_peers.strip() == "auto"
+        static = [] if auto else [a.strip() for a in federation_peers.split(",") if a.strip()]
+        if auto and link is None:
+            logger.warning("--federation-peers auto needs a manager link; federation disabled")
+        else:
+            federation = FederationSync(
+                service,
+                self_addr=f"{host}:{server.port}",
+                name=hostname or f"{host}:{server.port}",
+                peers=static,
+                peers_fn=link.federation_peers if link is not None else None,
+                interval=federation_interval or DEFAULT_SYNC_INTERVAL,
+            )
+            federation.start()
+            logger.info(
+                "federation sync up (interval %.1fs, peers %s)",
+                federation.interval, static or "manager-fed",
+            )
     announcer = None
     if trainer_addr and telemetry is not None:
         from dragonfly2_tpu_torch.scheduler.announcer import DEFAULT_INTERVAL, TrainerAnnouncer
@@ -102,6 +181,7 @@ async def run_scheduler(
         announcer = TrainerAnnouncer(
             telemetry, trainer_addr,
             hostname=hostname,
+            scheduler_id=(link.scheduler_id or 0) if link else 0,
             interval=trainer_interval or DEFAULT_INTERVAL,
         )
         announcer.start()
@@ -118,8 +198,14 @@ async def run_scheduler(
         gc.stop()
         degradation.stop()
         loop_monitor.stop()
+        alert_engine.stop()
+        recorder.stop()
+        if federation is not None:
+            await federation.stop()
         if announcer is not None:
             await announcer.stop()
+        if link is not None:
+            await link.stop()
         if telemetry:
             telemetry.flush()
         await server.stop()
@@ -143,28 +229,12 @@ def _sweep(service: SchedulerService) -> None:
 def _refusals(args: argparse.Namespace, cfg) -> list[str]:
     """What this boot asks for that the port does not run yet, one message
     each; the caller refuses the boot when any is set."""
-    from dragonfly2_tpu_torch.scheduler.config import RolloutSection
-
-    link = f"needs the scheduler's ManagerLink, not ported yet ({_STILL_TO_PORT}: ManagerLink)"
-    fed = f"needs scheduler federation, not ported yet ({_STILL_TO_PORT}: federation)"
-    out = [
-        f"{flag}: {why}"
-        for flag, value, why in (
-            ("--manager", args.manager, link),
-            ("--keepalive-interval", args.keepalive_interval, link),
-            ("--model-watch-interval", args.model_watch_interval, link),
-            ("--shadow-sample-rate", args.shadow_sample_rate, link),
-            ("--idc", args.idc or None, link),
-            ("--location", args.location or None, link),
-            ("--federation-peers", args.federation_peers, fed),
-            ("--federation-interval", args.federation_interval, fed),
-            ("--metrics-port", args.metrics_port,
-             f"needs the debug and metrics server, not ported yet ({_STILL_TO_PORT}: observability/server.py)"),
+    out = []
+    if args.metrics_port is not None:
+        out.append(
+            "--metrics-port: needs the debug and metrics server, not ported yet "
+            f"({_STILL_TO_PORT}: observability/server.py)"
         )
-        if value is not None
-    ]
-    if cfg.rollout != RolloutSection():
-        out.append(f"rollout: {link}")
     for name in ("otlp_file", "otlp_endpoint", "trace_file"):
         if getattr(cfg.tracing, name):
             out.append(
@@ -198,24 +268,26 @@ def main() -> None:
                     help="refused: the debug server is not ported yet")
     ap.add_argument("--evaluator", default=cfg.evaluator,
                     help='"base", "ml", or "plugin:pkg.mod:attr"')
-    ap.add_argument("--manager", default=cfg.manager,
-                    help="refused: the ManagerLink is not ported yet")
+    ap.add_argument("--manager", default=cfg.manager, help="manager address host:port")
     ap.add_argument("--keepalive-interval", type=float, default=None,
-                    help="refused: a ManagerLink setting")
+                    help="seconds between manager keepalives (stats frames "
+                         "ride this tick; default 20)")
     ap.add_argument("--trainer", default=cfg.trainer, help="trainer address host:port")
     ap.add_argument("--model-watch-interval", type=float, default=None,
-                    help="refused: a ManagerLink setting")
-    ap.add_argument("--shadow-sample-rate", type=float, default=None,
-                    help="refused: a ManagerLink setting")
+                    help="seconds between active-model registry polls (default 60)")
+    ap.add_argument("--shadow-sample-rate", type=float,
+                    default=cfg.rollout.shadow_sample_rate,
+                    help="fraction of rounds a rollout candidate shadow-scores")
     ap.add_argument("--trainer-interval", type=float, default=cfg.trainer_interval,
                     help="telemetry upload cadence in seconds (default 7 days)")
     ap.add_argument("--federation-peers", default=cfg.federation_peers,
-                    help="refused: federation is not ported yet")
+                    help='peer scheduler addresses "host:port,host:port", or '
+                         '"auto" to follow the manager address book')
     ap.add_argument("--federation-interval", type=float, default=cfg.federation_interval,
-                    help="refused: federation is not ported yet")
+                    help="seconds between federation gossip rounds (default 5)")
     ap.add_argument("--hostname", default=cfg.hostname)
-    ap.add_argument("--idc", default=cfg.idc, help="refused: a ManagerLink setting")
-    ap.add_argument("--location", default=cfg.location, help="refused: a ManagerLink setting")
+    ap.add_argument("--idc", default=cfg.idc)
+    ap.add_argument("--location", default=cfg.location)
     ap.add_argument("--log-dir", default=cfg.log_dir,
                     help="per-component rotating log files (console only when unset)")
     ap.add_argument("-v", "--verbose", action="store_true")
@@ -239,9 +311,18 @@ def main() -> None:
             telemetry_dir=args.telemetry_dir,
             evaluator=args.evaluator,
             gc_interval=cfg.gc.interval,
+            manager_addr=args.manager,
+            keepalive_interval=args.keepalive_interval,
             trainer_addr=args.trainer,
             trainer_interval=args.trainer_interval,
+            model_watch_interval=args.model_watch_interval,
+            shadow_sample_rate=args.shadow_sample_rate,
+            health_gates=cfg.rollout.health_gates(),
+            federation_peers=args.federation_peers,
+            federation_interval=args.federation_interval,
             hostname=args.hostname,
+            idc=args.idc,
+            location=args.location,
             scheduling_config=cfg.scheduling_config(),
             gc_policy=cfg.gc_policy(),
             degradation_budgets=cfg.degradation.controller_kwargs(),

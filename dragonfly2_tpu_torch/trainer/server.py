@@ -8,8 +8,9 @@ Serves the port's ``TrainerService`` over the JAX package's wire protocol
 telemetry to it, and it publishes each trained model to the manager. It
 trains on the card unless ``--device`` names another. Prints
 ``TRAINER_READY <addr>`` once it listens, and stops on SIGINT or SIGTERM.
-Left out: the reference's stats-frame push to the manager (the port has no
-time-series recorder).
+The process runs the time-series recorder, and with a manager a stats frame
+rides ``keepalive("trainer", ..., stats=frame)`` every ``stats_interval``
+seconds (20 by default), as the reference's does.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import argparse
 import asyncio
 import dataclasses
 import logging
+import socket
 
 from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.rpc.core import RpcServer
@@ -75,15 +77,40 @@ async def stop_trainer(server: RpcServer, service: TrainerService) -> None:
 
 async def run_trainer(
     *, host: str = "127.0.0.1", port: int = 9300, manager_addr: str | None = None,
-    ready_event: asyncio.Event | None = None, **config,
+    stats_interval: float = 20.0, ready_event: asyncio.Event | None = None, **config,
 ) -> None:
     """Serve until SIGINT/SIGTERM (or until the task is cancelled).
     ``config`` takes ``trainer_config``'s keywords."""
+    from dragonfly2_tpu_torch.observability.timeseries import build_stats_frame, default_recorder
+
     server, service = await start_trainer(trainer_config(**config), host=host, port=port,
                                           manager_addr=manager_addr)
+    # cluster metrics plane: the trainer is a member of the cluster view
+    # too; its frame (loop lag and whatever trainer families exist) rides a
+    # keepalive tick like every other service's
+    recorder = default_recorder()
+    recorder.start()
+    stats_task = None
+    if service.manager is not None:
+        manager = service.manager
+        trainer_host = socket.gethostname()
+
+        async def stats_loop() -> None:
+            while True:
+                await asyncio.sleep(stats_interval)
+                try:
+                    frame = build_stats_frame(recorder, service="trainer", hostname=trainer_host)
+                    await manager.keepalive("trainer", trainer_host, stats=frame)
+                except Exception:
+                    logger.debug("stats frame push failed", exc_info=True)
+
+        stats_task = asyncio.ensure_future(stats_loop())
     try:
         await run_until_signalled(ready_event, lambda: print(f"TRAINER_READY {server.address}", flush=True))
     finally:
+        recorder.stop()
+        if stats_task is not None:
+            stats_task.cancel()
         await stop_trainer(server, service)
 
 

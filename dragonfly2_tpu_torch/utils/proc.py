@@ -33,7 +33,8 @@ async def run_until_signalled(
 
 def ready_address(proc: subprocess.Popen, prefix: str, deadline: float) -> str:
     """The address on a child service's ready line (``<prefix> <address>``,
-    the first line of its stdout, read as text). A child that prints none by
+    the first line of its stdout, read as text; the prefix may hold spaces,
+    as the manager's ``manager ready rpc=<addr>`` does). A child that prints none by
     ``deadline`` (a ``time.monotonic()`` instant) is killed, which ends the
     blocked read; one that prints another line did not start. Both raise
     RuntimeError."""
@@ -46,4 +47,4 @@ def ready_address(proc: subprocess.Popen, prefix: str, deadline: float) -> str:
             raise RuntimeError(f"no {prefix} line by the deadline") from None
     if not line.startswith(prefix + " "):
         raise RuntimeError(f"the service did not start: {line!r}, exit {proc.poll()}")
-    return line.split()[1]
+    return line[len(prefix) + 1:].split()[0]

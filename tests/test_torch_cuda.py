@@ -402,3 +402,29 @@ def test_port_evaluator_serves_the_scorer_on_card(card, engine, tmp_path, monkey
                for r in ("no_scorer", "unknown_hosts", "scorer_error", "degraded")) == fallbacks
     if engine == "native":
         scorer.close()
+
+
+def test_a_drained_bundle_releases_the_card(card, tmp_path, monkeypatch):
+    """Two torch scorers on the card through the port's evaluator: the
+    replaced bundle still holds its scorer and a MicroBatchScorer holds it
+    too, yet closing the drained bundle (ModelBundle.close → GNNScorer.close)
+    hands the card memory of its tables and weights back."""
+    path, digest, hosts, pair_feats = dfstress.build_scoring_artifact(tmp_path / "a", n_nodes=4096)
+    monkeypatch.setenv("DRAGONFLY_NATIVE_SCORER", "0")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    ev = port_evaluator.MLEvaluator()
+    first, idx = manager_link.load_scorer_verified(str(path), digest)
+    ev.attach_scorer(first, idx, microbatch=MicroBatchScorer(first), version="v1")
+    one = torch.cuda.memory_allocated() - base
+    assert one > 0
+    second, idx2 = manager_link.load_scorer_verified(str(path), digest)
+    old = ev.attach_scorer(second, idx2, microbatch=MicroBatchScorer(second), version="v2")
+    assert old.version == "v1" and torch.cuda.memory_allocated() - base >= 2 * one * 0.9
+    old.begin()
+    assert not old.close()  # a round is inside: refused
+    old.end()
+    assert old.close()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - base <= one * 1.1
+    assert not first.ready and second.ready

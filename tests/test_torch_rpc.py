@@ -11,6 +11,7 @@ the port's trainer front.
 """
 
 import asyncio
+import socket
 
 import msgpack
 import numpy as np
@@ -319,6 +320,46 @@ def test_retries_deadlines_and_hints_on_one_scripted_server_as_the_reference_cli
     # next call, are refused at the breaker without a connection
     for o in got[13:15]:
         assert o[1][:3] == ("RpcError", "unavailable", "circuit open to 127.0.0.1:1") and o[2:] == ("open", 2)
+
+
+def test_target_class_shares_one_process_wide_budget_as_the_reference():
+    """Clients naming one target class spend from one process-wide budget,
+    created with the reference's rate and burst; another class gets its
+    own, and a client naming none retries unbudgeted."""
+    seen = []
+    for core_mod, budget_mod in ((core, budget), (ref_core, ref_budget)):
+        a = core_mod.RpcClient("127.0.0.1:1", target_class="rpc-test-class")
+        b = core_mod.RpcClient("127.0.0.1:2", target_class="rpc-test-class")
+        other = core_mod.RpcClient("127.0.0.1:3", target_class="rpc-test-other")
+        assert a.retry_budget is b.retry_budget is budget_mod.budget_for("rpc-test-class")
+        assert other.retry_budget is not a.retry_budget
+        assert core_mod.RpcClient("127.0.0.1:4").retry_budget is None
+        seen.append((a.retry_budget.name, a.retry_budget.rate, a.retry_budget.burst, other.retry_budget.name))
+    assert seen[0] == seen[1] == ("rpc-test-class", 10.0, 20.0, "rpc-test-other")
+
+
+def test_stop_returns_with_a_connection_accepted_as_it_began():
+    """A connection the loop accepts while ``stop()`` begins (its handler
+    not yet run) must not hold ``wait_closed()`` until the peer hangs up:
+    stop() is called 0-7 loop steps after the peer connects, so that it
+    lands in each stage of the accept."""
+
+    async def body():
+        stopped = []
+        for steps in range(8):
+            server = core.RpcServer()
+            await server.start()
+            peer = socket.create_connection(("127.0.0.1", server.port))
+            try:
+                for _ in range(steps):
+                    await asyncio.sleep(0)
+                await asyncio.wait_for(server.stop(), 5.0)
+                stopped.append(steps)
+            finally:
+                peer.close()
+        return stopped
+
+    assert _run(body()) == list(range(8))
 
 
 def test_port_server_refuses_an_oversized_frame():

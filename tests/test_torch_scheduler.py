@@ -425,14 +425,16 @@ def test_scheduler_yaml_gives_the_references_values(tmp_path):
 
 
 def test_scheduler_metric_families_are_the_references():
-    """Every family the port declares has the reference's name, kind, labels
-    and buckets (and help, but ML_SERVING_MODE's, which names the port's
-    torch label); ServiceMetrics' twins too."""
+    """The port declares every family of the reference (the ManagerLink's
+    swap, rollout and outage families and the federation loop's came with
+    the port's link), each with the reference's name, kind, labels and
+    buckets (and help, but ML_SERVING_MODE's, which names the port's torch
+    label); ServiceMetrics' twins too."""
     from dragonfly2_tpu.scheduler import metrics as ref_metrics
     from dragonfly2_tpu_torch.scheduler import metrics as port_metrics
 
     names = [k for k in dir(port_metrics) if k.isupper()]
-    assert len(names) == 31
+    assert len(names) == 39 and names == [k for k in dir(ref_metrics) if k.isupper()]
     for name in names:
         port, ref = getattr(port_metrics, name), getattr(ref_metrics, name)
         assert (port.name, port.kind, port.label_names, getattr(port, "buckets", None)) == \

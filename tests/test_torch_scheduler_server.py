@@ -10,10 +10,16 @@
   ml`` prints ``SCHEDULER_READY <addr>``, logs the port evaluator's serving
   mode, serves a short ``dfstress --swarm`` from the port's client with no
   error, and stops on SIGTERM within 10 s with exit code 0.
-- A booted server (base, and a model-less ml with telemetry and a trainer
-  announcer) has loaded no module of jax, flax, torch or dragonfly2_tpu.
-- The flags whose machinery the port has not ported are refused with exit
-  code 2 and the ROADMAP.md item that ports them.
+- A booted server (base, a model-less ml with telemetry and a trainer
+  announcer, and a model-less ml with a manager link and federation) has
+  loaded no module of jax, flax, torch or dragonfly2_tpu.
+- ``--manager``, the link's settings, a ``rollout:`` section and
+  ``--federation-peers`` boot (with the manager down, the scheduler serves
+  standalone); a port scheduler process attaches a model published to a
+  port manager process, and its stats frames reach the manager.
+- The flags whose machinery the port has not ported (``--metrics-port``, a
+  ``tracing:`` exporter) are refused with exit code 2 and the ROADMAP.md
+  item that ports them, with or without a manager.
 
 Every subprocess has a deadline of 120 s or less.
 """
@@ -213,7 +219,8 @@ runpy.run_module("dragonfly2_tpu_torch.scheduler.server", run_name="__main__")
 
 
 @pytest.mark.parametrize("args", [["--evaluator", "base"],
-                                  ["--evaluator", "ml", "--telemetry-dir", "tel", "--trainer", "127.0.0.1:9"]])
+                                  ["--evaluator", "ml", "--telemetry-dir", "tel", "--trainer", "127.0.0.1:9"],
+                                  ["--evaluator", "ml", "--manager", "127.0.0.1:9", "--federation-peers", "auto"]])
 def test_a_booted_server_has_loaded_no_jax_torch_or_reference_module(args, tmp_path):
     p = subprocess.run([sys.executable, "-c", _PROBE, "--host", "127.0.0.1", "--port", "0", *args],
                        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=120)
@@ -224,17 +231,109 @@ def test_a_booted_server_has_loaded_no_jax_torch_or_reference_module(args, tmp_p
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--manager", "127.0.0.1:65000"], "ManagerLink"),
-    (["--keepalive-interval", "5"], "ManagerLink"),
-    (["--federation-peers", "127.0.0.1:9001"], "federation"),
     (["--metrics-port", "0"], "observability/server.py"),
+    (["--config", "metrics.yaml"], "observability/server.py"),
     (["--config", "tracing.yaml"], "tracing exporters"),
-    (["--config", "rollout.yaml"], "ManagerLink"),
+    (["--config", "otlp.yaml"], "tracing exporters"),
+    (["--manager", "127.0.0.1:65000", "--metrics-port", "0"], "observability/server.py"),
+    (["--federation-peers", "auto", "--config", "tracing.yaml"], "tracing exporters"),
 ])
 def test_flags_the_port_has_not_ported_are_refused(args, item, tmp_path):
     (tmp_path / "tracing.yaml").write_text("tracing:\n  trace_file: /tmp/spans.jsonl\n")
-    (tmp_path / "rollout.yaml").write_text("rollout:\n  shadow_sample_rate: 0.5\n")
+    (tmp_path / "otlp.yaml").write_text("tracing:\n  otlp_endpoint: 127.0.0.1:4317\n")
+    (tmp_path / "metrics.yaml").write_text("metrics_port: 9100\n")
     p = subprocess.run([*SERVER, *args], cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=120)
     assert p.returncode == 2
     assert "ROADMAP.md" in p.stderr and item in p.stderr, p.stderr
     assert "SCHEDULER_READY" not in p.stdout
+
+
+@pytest.mark.parametrize("args", [
+    ["--manager", "127.0.0.1:9", "--keepalive-interval", "5", "--model-watch-interval", "5",
+     "--shadow-sample-rate", "0.5", "--idc", "idc-a", "--location", "cn|hz"],
+    ["--federation-peers", "127.0.0.1:9001,127.0.0.1:9002", "--federation-interval", "0.5"],
+    ["--config", "rollout.yaml", "--evaluator", "ml"],
+])
+def test_the_manager_link_and_federation_flags_boot(args, tmp_path):
+    """With the manager down the link fails to start and the scheduler
+    serves standalone, as the reference's does."""
+    (tmp_path / "rollout.yaml").write_text("rollout:\n  shadow_sample_rate: 0.5\n  health_min_rounds: 10\n")
+    deadline = time.monotonic() + 60.0
+    proc = subprocess.Popen([*SERVER, *args], cwd=tmp_path, env=_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    try:
+        addr = ready_address(proc, "SCHEDULER_READY", deadline)
+        assert addr.startswith("127.0.0.1:")
+    finally:
+        assert _stop(proc, 10.0) == 0
+
+
+def _train_artifact(root: Path) -> dict:
+    """A small GNN artifact from the port's trainer service on the CPU."""
+    from dragonfly2_tpu_torch.trainer import train_gnn, train_mlp
+    from dragonfly2_tpu_torch.trainer.service import TrainerConfig, TrainerService, pack_records
+    from dragonfly2_tpu_torch.trainer.synthetic import synth_telemetry_records
+
+    cfg = TrainerConfig(
+        model_dir=str(root / "models"), device="cpu",
+        mlp=train_mlp.MLPTrainConfig(hidden=(16,), steps=4, batch_size=64),
+        gnn=train_gnn.GNNTrainConfig(hidden=16, embed_dim=8, num_layers=2, batch_size=64, warmup_steps=1),
+        gnn_steps=4, gnn_steps_per_call=4,
+    )
+    d, p = synth_telemetry_records(300, 200, 16, seed=4)
+
+    async def body():
+        svc = TrainerService(cfg)
+        token = (await svc.train_open({"hostname": "sch1"}))["token"]
+        for kind, arr in (("downloads", d), ("probes", p)):
+            await svc.train_chunk({"token": token, "kind": kind, "data": pack_records(arr)})  # dflint: disable=DF025 one chunk per kind
+        await svc.train_close({"token": token})
+        await svc.wait_idle()
+        return svc.last_result
+
+    out = asyncio.run(asyncio.wait_for(body(), DEADLINE_S))
+    assert "gnn" in out, out
+    return out["gnn"]
+
+
+def test_a_scheduler_process_attaches_a_model_from_a_manager_process(tmp_path):
+    """Manager process, then a port scheduler process with ``--manager``
+    and short intervals; a model published to the manager is attached
+    (native engine) and the scheduler's frames name its serving mode."""
+    from dragonfly2_tpu_torch.rpc.manager import RemoteManagerClient
+
+    gnn = _train_artifact(tmp_path)
+    deadline = time.monotonic() + 110.0
+    env = {**_env(), "DRAGONFLY_TS_INTERVAL": "0.2"}
+    mgr = subprocess.Popen([sys.executable, "-m", "dragonfly2_tpu_torch.manager.server", "--port", "0",
+                            "--db", str(tmp_path / "m.db")],
+                           cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    sched = None
+    try:
+        maddr = ready_address(mgr, "manager ready", deadline).removeprefix("rpc=")
+        sched = subprocess.Popen([*SERVER, "--evaluator", "ml", "--manager", maddr, "--keepalive-interval", "0.5",
+                                  "--model-watch-interval", "0.5", "--hostname", "sch-proc"],
+                                 cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        ready_address(sched, "SCHEDULER_READY", deadline)
+
+        async def drive():
+            c = RemoteManagerClient(maddr, retries=0)
+            try:
+                row = await c.publish_model("gnn", "v1", artifact_path=gnn["artifact"], artifact_digest=gnn["digest"])
+                assert row["state"] == "active"
+                while time.monotonic() < deadline:
+                    view = await c.cluster_stats()
+                    frames = {m["hostname"]: m["frame"] for m in view["members"]}
+                    if frames.get("sch-proc", {}).get("serving_mode") == "native":
+                        return frames["sch-proc"], await c.list_schedulers()
+                    await asyncio.sleep(0.2)
+                raise AssertionError(f"no frame with serving mode native: {view}")
+            finally:
+                await c.close()
+
+        frame, scheds = asyncio.run(asyncio.wait_for(drive(), DEADLINE_S))
+        assert frame["service"] == "scheduler" and [s["hostname"] for s in scheds] == ["sch-proc"]
+    finally:
+        if sched is not None:
+            assert _stop(sched, 10.0) == 0
+        assert _stop(mgr, 10.0) == 0
