@@ -211,8 +211,53 @@ Phases, each of which must hold or the run exits non-zero at once:
              book at boot, while the first sees the second only at its next
              60 s refresh), and the frames in cluster_stats carry both
              schedulers' federation families, at least one naming its peer
-             with successful syncs.
-14. kernels  each kernel against its plain PyTorch version on the card, at the
+             with successful syncs. Then the operator CLIs: in leg (a),
+             dfml train --json through the port's cli.dfml.main against
+             the leg's trainer lists both runs trained on the card; in leg
+             (b), after a wave of 4 tasks of 64 peers driven over RPC on
+             the torch scheduler (hosts the model knows, so its rounds score
+             on the card), python -m dragonfly2_tpu_torch.cli.dftop --once
+             --json exits 0 with both schedulers serving torch and native,
+             cli.dfmodel status --json shows v2's artifact active, cli.dfml
+             decisions --json returns the wave's records and cli.dfml
+             explain on one scored on the card exits 0, its replay
+             bit-exact. Each call under a 60 s deadline.
+14. sim      the swarm simulator (sim/) over the port's control plane, at
+             tools/check.sh's sim-smoke shape: flash_crowd(peers=10,000,
+             seed=0), 2 federated schedulers, 3 regions, churn at a 600 s
+             mean lifetime with 25% crashes, on a virtual clock. (a) The base
+             run with its records captured: the scenario's check and
+             check.sh's bounds (completed >= 9,500, placement rounds >
+             9,000, same-region share >= 0.5, 0 < origin fetches a region
+             <= 8, no departed-parent round, a dataset with nodes and edges),
+             then build_dataset, its training pairs split by idc_match
+             (count and mean label) and its rtt column's spread. (b) python -m dragonfly2_tpu_torch.cli.dfsim
+             flash-crowd --peers 10000 --seed 0 --scoring ml-native --json,
+             a process of its own beside (a) and (c) (the native C++ scorer
+             on the host), under a 600 s deadline: tests/test_sim.py's
+             coverage contract (native rounds >= rounds - schedulers, mirror
+             + stale = native, one full sync a scheduler) and no
+             departed-parent round. (c) A GNN (hidden 256, embed 128, 3
+             layers, batch 4096) trained by train_async on the card from
+             (a)'s dataset, 100 steps in calls of 10, whose losses must fall;
+             saved (save_artifact, save_graph, save_native), digested, loaded
+             by load_scorer_verified with DRAGONFLY_NATIVE_SCORER=0 as
+             GNNScorer on the card, and attached through attach_scorer
+             (version sim-trained, no micro-batcher, no dispatcher: the
+             virtual-clock loop sees nothing a thread resolves) to every
+             scheduler of a fresh flash_crowd(10,000, seed 0) whose
+             evaluators record one round in 20. Every evaluator serves
+             torch; no round falls back as scorer_error, no_scorer or
+             degraded, at most 1% as unknown_hosts; no departed-parent
+             round, completed >= 9,500; at least 128 recorded rounds scored
+             on the card, and every record the rings hold re-scored by the
+             same artifact on the CPU within 5e-3. The scenario's check is
+             printed, not gated: placement under a learned model is this
+             leg's finding. Per leg: events, events/s, time compression,
+             rounds/s inside schedule_candidate_parents, placement and
+             outcomes; for (c) also the dataset, train seconds and steps/s,
+             load + verify seconds, card memory and fallbacks by reason.
+15. kernels  each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
@@ -234,6 +279,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import pathlib
@@ -261,8 +307,8 @@ from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import (
     transpose_index,
 )
 from dragonfly2_tpu_torch import resolve_device
-from dragonfly2_tpu_torch.cli import dfstress
-from dragonfly2_tpu_torch.models.features import BASE_WEIGHTS, FEATURE_DIM
+from dragonfly2_tpu_torch.cli import dfml, dfstress
+from dragonfly2_tpu_torch.models.features import BASE_WEIGHTS, FEATURE_DIM, FEATURE_NAMES
 from dragonfly2_tpu_torch.models.weights import full_state_dict
 from dragonfly2_tpu_torch.parallel import distributed as dist_lib
 from dragonfly2_tpu_torch.parallel import mesh as meshlib
@@ -271,9 +317,10 @@ from dragonfly2_tpu_torch.rpc.balancer import ConsistentHashRing
 from dragonfly2_tpu_torch.rpc.core import RpcServer
 from dragonfly2_tpu_torch.scheduler import manager_link, scheduling
 from dragonfly2_tpu_torch.scheduler import metrics as sched_metrics
-from dragonfly2_tpu_torch.scheduler.evaluator import SERVING_MODES, MLEvaluator
+from dragonfly2_tpu_torch.scheduler.evaluator import SERVING_MODES, DecisionRecorder, MLEvaluator
 from dragonfly2_tpu_torch.scheduler.announcer import CHUNK_ROWS, TrainerAnnouncer
 from dragonfly2_tpu_torch.scheduler.service import HostInfo, SchedulerService, TaskMeta
+from dragonfly2_tpu_torch.sim import scenarios as sim_scenarios
 from dragonfly2_tpu_torch.telemetry import TelemetryStorage
 from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
 from dragonfly2_tpu_torch.tpuvm import staging
@@ -345,8 +392,23 @@ SWARM_SCHEDULERS, SWARM_BOOT_S, SWARM_DURATION_S, SWARM_TASKS, SWARM_SHARE_TOL =
 ROLL_TASKS, ROLL_KEEPALIVE_S, ROLL_REJOIN_S, ROLL_FIXED_SEED = 32, 1.0, 30.0, 41
 ROLL_GATES = {"min_rounds": 1000, "min_topk_overlap": 0.0, "min_rank_corr": -1.0, "max_mean_abs_delta": 100.0}
 ROLL_BOOT_S, ROLL_ATTACH_S, ROLL_FEDERATION_S = 60.0, 60.0, 30.0
+# the CLIs against the rollout phase's processes: a wave of ROLL_CLI_TASKS tasks
+# of SCHED_PEERS peers on the torch scheduler over RPC (rounds on hosts the
+# model knows, so scored on the card: the recorder keeps 1 in 50), each call
+# under its deadline
+ROLL_CLI_TASKS, ROLL_CLI_HOSTS, CLI_DEADLINE_S = 4, 128, 60.0
 SWAP_RESULTS = ("ok", "missing", "digest_mismatch", "load_error", "swap_error", "rpc_error", "rejected_version",
                 "rollback")
+# the sim phase: tools/check.sh's sim-smoke shape (flash crowd, 10,000 peers,
+# 2 federated schedulers, 3 regions, churn at a 600 s mean lifetime with 25%
+# crashes, seed 0); leg (c) trains the ingest phase's GNN widths (the
+# GNNTrainConfig defaults) on leg (a)'s records, 100 steps in calls of 10, and
+# serves it to a second run whose evaluators record one round in 20; at most
+# 1% of that run's rounds may fall back as unknown_hosts, and the rings must
+# hold SIM_MIN_RECORDS records
+SIM_PEERS, SIM_SEED, SIM_DEADLINE_S = 10_000, 0, 600.0
+SIM_TRAIN = train_gnn.GNNTrainConfig(hidden=256, embed_dim=128, num_layers=3, batch_size=4096)
+SIM_TRAIN_STEPS, SIM_DECISION_SAMPLE, SIM_MIN_RECORDS, SIM_UNKNOWN_MAX = 100, 0.05, 128, 0.01
 REPO = pathlib.Path(__file__).resolve().parent
 # tests/test_ops.py's own tolerances for the Pallas kernel against XLA
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
@@ -1955,6 +2017,15 @@ async def rollout_inproc(tmp: pathlib.Path) -> dict:
             raise AssertionError(f"after the rejoin: unreachable {link.manager_unreachable}, "
                                  f"serving {ev.serving_version!r}")
         step("outage and rejoin", rounds_scored_in_outage=dark["rounds"])
+
+        # dfml train through the port's CLI against this leg's trainer: both
+        # runs, trained on the card, listed with their GNN
+        rc, text = await asyncio.to_thread(cli_call, dfml.main, ["train", "--trainer", trainer.address, "--json"])
+        runs = {r["run_id"]: r for r in json.loads(text)["runs"]} if rc == 0 else {}
+        listed = {v: runs.get(v, {}).get("status") for v in (v1["version"], v2["version"])}
+        if rc or any(s != "ok" or "gnn" not in runs[v]["models"] for v, s in listed.items()):
+            raise AssertionError(f"dfml train exited {rc}, listing {listed}")
+        step("dfml train", runs=len(runs), gnn_steps={v: runs[v]["models"]["gnn"]["steps"] for v in listed})
         return {"steps": steps, "waves": waves, "loads": len(loads), "v1": v1["version"], "v2": v2["version"],
                 "shadow_divergence": divergence, "artifact": v2["artifact"], "digest": v2["digest"]}
     finally:
@@ -2054,6 +2125,7 @@ def rollout_processes(tmp: pathlib.Path, artifact: str, digest: str) -> dict:
             return out
 
         out = asyncio.run(drive())
+        out["clis"] = rollout_clis(maddr, addrs, artifact, env)
     finally:
         for p in procs:
             p.terminate()
@@ -2073,6 +2145,73 @@ def rollout_processes(tmp: pathlib.Path, artifact: str, digest: str) -> dict:
           f"federated {out['swarm_to_federated_s']:.2f} s after it: "
           f"{ {k: tuple(v.values()) for k, v in out['federation'].items()} } "
           f"(remote edges, local edges, peers and ok syncs/s in its frame); leg {out['wall_s']:.1f} s")
+    return out
+
+
+def rollout_clis(maddr: str, addrs: dict, artifact: str, env: dict) -> dict:
+    """The operator CLIs as processes against leg (b)'s manager and
+    schedulers: dftop's cluster screen, dfmodel's rollout status, and
+    dfml's decisions and replay of a round the torch scheduler scored on
+    the card (a wave on hosts the model knows, driven over RPC first)."""
+    from dragonfly2_tpu_torch.rpc.scheduler import RemoteSchedulerClient
+
+    t0 = time.perf_counter()
+    hosts = sched_hosts()[:ROLL_CLI_HOSTS]
+    length = SCHED_PIECES * (4 << 20)
+
+    async def wave() -> list[str]:
+        client = RemoteSchedulerClient(addrs["sch-torch"])
+        tasks = []
+        try:
+            for h in hosts:
+                await client.announce_host(h)  # dflint: disable=DF025 set-up, one host at a time
+            for t in range(ROLL_CLI_TASKS):
+                meta = TaskMeta(task_id=f"cli-{t:02d}", url=f"http://origin.example/cli/{t}")
+                tasks.append(meta.task_id)
+                picks = np.random.default_rng([SCHED_SEED, 100 + t]).choice(len(hosts), SCHED_PEERS, replace=False)
+                for j, h in enumerate(picks):
+                    pid = f"cli-{t}-{j}"
+                    r = await client.register_peer(pid, meta, hosts[h])  # dflint: disable=DF025 one registration is one scheduling round
+                    if r.back_to_source:
+                        await client.report_task_metadata(meta.task_id, content_length=length, piece_size=4 << 20)  # dflint: disable=DF025 as above
+                    ps = [p.peer_id for p in r.parents] or [""]
+                    await client.report_batch(pid, [(i, 2.0 + i % 7, ps[i % len(ps)]) for i in range(SCHED_PIECES)],  # dflint: disable=DF025 as above
+                                              {"success": True, "bandwidth_bps": 5e7 + 1e6 * int(h)})
+        finally:
+            await client.close()
+        return tasks
+
+    tasks = asyncio.run(wave())
+    out: dict = {"wave_s": time.perf_counter() - t0}
+    rc, text = cli_process("dragonfly2_tpu_torch.cli.dftop", ["--manager", maddr, "--once", "--json"], env)
+    modes = {m["hostname"]: (m.get("frame") or {}).get("serving_mode") for m in json.loads(text)["members"]} \
+        if rc == 0 else {}
+    if rc or modes != {"sch-torch": "torch", "sch-native": "native"}:
+        raise AssertionError(f"dftop --once exited {rc} with members {modes}")
+    rc, text = cli_process("dragonfly2_tpu_torch.cli.dfmodel", ["status", "--manager", maddr, "--json"], env)
+    active = (json.loads(text)["active"] or {}) if rc == 0 else {}
+    if rc or active.get("version") != "v-proc" or active.get("artifact_path") != artifact:
+        raise AssertionError(f"dfmodel status exited {rc}, active {active}")
+    torch_addr = addrs["sch-torch"]
+    rc, text = cli_process("dragonfly2_tpu_torch.cli.dfml",
+                           ["decisions", "--scheduler", torch_addr, "--limit", "256", "--json"], env)
+    if rc:
+        raise AssertionError(f"dfml decisions exited {rc}")
+    records = [r for r in json.loads(text)["records"] if r["task_id"] in tasks]
+    on_card = [r for r in records if r["serving_mode"] == "torch" and r["model_version"] == "v-proc"]
+    if not on_card:
+        raise AssertionError(f"dfml decisions: no round of the CLI wave scored on the card: {records}")
+    rec = on_card[0]
+    rc, text = cli_process("dragonfly2_tpu_torch.cli.dfml",
+                           ["explain", "--scheduler", torch_addr, rec["task_id"], rec["child_peer"]], env)
+    if rc or "(bit-exact)" not in text:
+        raise AssertionError(f"dfml explain exited {rc}: {text[-2000:]}")
+    out.update(dftop_modes=modes, dfmodel_active=active["version"], decisions=len(records),
+               decisions_on_card=len(on_card), explained=f"{rec['task_id']} {rec['child_peer']}",
+               wall_s=time.perf_counter() - t0)
+    print(f"  CLIs: dftop --once {modes}; dfmodel status active {active['version']}; dfml decisions "
+          f"{len(records)} records of the CLI wave ({len(on_card)} scored on the card); dfml explain "
+          f"{out['explained']} replays bit-exact; {out['wall_s']:.1f} s")
     return out
 
 
@@ -2099,6 +2238,268 @@ def rollout() -> dict:
         else:
             os.environ["DRAGONFLY_NATIVE_SCORER"] = old
     return {"in_process": inproc, "processes": procs, "host_cpu": host_cpu(),
+            "wall_s": time.perf_counter() - t_phase}
+
+
+def cli_call(main, argv: list[str]) -> tuple[int, str]:
+    """A port CLI's ``main(argv)`` in this process: its exit code and standard
+    output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def cli_process(module: str, args: list[str], env: dict) -> tuple[int, str]:
+    """``python -m <module> <args>`` under CLI_DEADLINE_S: its exit code and
+    standard output (its standard error printed when it fails)."""
+    p = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=CLI_DEADLINE_S)
+    if p.returncode:
+        print(f"  {module} {' '.join(args)} exited {p.returncode}: {p.stderr[-2000:]}")
+    return p.returncode, p.stdout
+
+
+def sim_leg(rep, content_length: int) -> dict:
+    """A leg's events and rates, placement and outcomes off its SimReport."""
+    return {
+        "peers": rep.peers, "events": rep.events, "wall_s": rep.wall_s, "virtual_s": rep.virtual_s,
+        "events_per_sec": rep.events_per_sec, "time_compression": rep.time_compression,
+        "sched_rounds": rep.sched_rounds, "sched_s": rep.sched_s, "sched_rounds_per_s": rep.sched_rounds_per_s,
+        "rounds_with_parents": rep.rounds_with_parents,
+        "same_region_frac": rep.same_region_frac, "same_rack_frac": rep.same_rack_frac,
+        "mean_parent_rtt_ms": rep.mean_parent_rtt_ms,
+        "completed": rep.completed, "failed": rep.failed, "back_to_source": rep.back_to_source,
+        "reschedules": rep.reschedules, "departed": rep.departed, "crashed": rep.crashed,
+        "departed_parent_rounds": rep.departed_parent_rounds,
+        "max_region_fetches": max(rep.origin_egress_bytes.values(), default=0) / content_length,
+    }
+
+
+def print_sim_leg(name: str, leg: dict) -> None:
+    print(f"  {name}: {leg['events']} events in {leg['wall_s']} s ({leg['events_per_sec']} events/s, "
+          f"{leg['virtual_s']} s virtual, {leg['time_compression']}x); {leg['sched_rounds']} scheduling rounds, "
+          f"{leg['sched_rounds_per_s']} rounds/s inside schedule_candidate_parents; placement: "
+          f"same region {leg['same_region_frac']}, same rack {leg['same_rack_frac']}, mean parent RTT "
+          f"{leg['mean_parent_rtt_ms']} ms; completed {leg['completed']}, failed {leg['failed']}, "
+          f"departed-parent rounds {leg['departed_parent_rounds']}")
+
+
+def scenario_verdict(scenario, rep) -> str | None:
+    """The scenario's own check: None when it passes, else its message."""
+    try:
+        scenario.check(rep)
+    except AssertionError as e:
+        return str(e) or "failed"
+    return None
+
+
+def sim_base(tmp: pathlib.Path) -> tuple[dict, object]:
+    """Leg (a): the base flash crowd at check.sh's sim-smoke shape, with its
+    records bridged to a dataset. Returns the leg's numbers and the dataset."""
+    sc = sim_scenarios.flash_crowd(peers=SIM_PEERS, seed=SIM_SEED, telemetry_dir=str(tmp / "telemetry"))
+    try:
+        rep = sc.sim.run()
+        verdict = scenario_verdict(sc, rep)
+        t0 = time.perf_counter()
+        bridged = sc.sim.build_dataset()
+        bridge_s = time.perf_counter() - t0
+    finally:
+        sc.sim.close()
+    leg = sim_leg(rep, sc.content_length)
+    ds = bridged.pop("dataset")
+    # what leg (c) learns from: the training pairs split by idc_match, with
+    # their mean label (the child's observed rate over 1 GiB/s), and the
+    # spread of the rtt column
+    feats, label = np.asarray(ds.pairs.feats), np.asarray(ds.pairs.label)
+    same = feats[:, FEATURE_NAMES.index("idc_match")] == 1.0
+    pairs_by_idc = {name: {"pairs": int(m.sum()), "label_mean": float(label[m].mean()) if m.any() else None}
+                    for name, m in (("same idc", same), ("other idc", ~same))}
+    rtt_std = float(feats[:, FEATURE_NAMES.index("rtt_norm")].std())
+    leg.update(check=verdict, dataset=bridged, bridge_s=bridge_s, pairs_by_idc=pairs_by_idc, rtt_norm_std=rtt_std)
+    print_sim_leg("(a) base", leg)
+    print(f"    scenario check: {verdict or 'passed'}; dataset {bridged} bridged in {bridge_s:.2f} s; training "
+          f"pairs by idc_match {pairs_by_idc}, rtt_norm spread {rtt_std:.3g}")
+    # tools/check.sh's sim-smoke assertions
+    if verdict is not None:
+        raise AssertionError(f"the base flash crowd failed its check: {verdict}")
+    if leg["completed"] < 9_500 * SIM_PEERS // 10_000 or leg["rounds_with_parents"] <= 9_000 * SIM_PEERS // 10_000 \
+            or leg["same_region_frac"] < 0.5 or not 0 < leg["max_region_fetches"] <= 8.0 \
+            or leg["departed_parent_rounds"] or not (bridged["nodes"] > 0 and bridged["edges"] > 0) \
+            or not (leg["events_per_sec"] > 0 and leg["time_compression"] > 1.0):
+        raise AssertionError(f"the base flash crowd missed check.sh's sim-smoke bounds: {leg}")
+    return leg, ds
+
+
+def sim_native_start(tmp: pathlib.Path) -> tuple[subprocess.Popen, float]:
+    """Leg (b) started: dfsim's ml-native flash crowd as a process of its own
+    (the native C++ scorer on the host, no card), run beside legs (a) and (c)."""
+    args = ["-m", "dragonfly2_tpu_torch.cli.dfsim", "flash-crowd", "--peers", str(SIM_PEERS), "--seed",
+            str(SIM_SEED), "--scoring", "ml-native", "--json"]
+    with open(tmp / "dfsim.log", "w") as err:
+        proc = subprocess.Popen([sys.executable, *args], cwd=tmp, env={**os.environ, "PYTHONPATH": str(REPO)},
+                                stdout=subprocess.PIPE, stderr=err, text=True)
+    return proc, time.monotonic() + SIM_DEADLINE_S
+
+
+def sim_native_finish(proc: subprocess.Popen, deadline: float, tmp: pathlib.Path) -> dict:
+    """Leg (b) collected and held to the reference test's coverage contract."""
+    try:
+        stdout, _ = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dfsim --scoring ml-native ran past {SIM_DEADLINE_S} s")
+    if proc.returncode:
+        raise AssertionError(f"dfsim --scoring ml-native exited {proc.returncode}: "
+                             f"{(tmp / 'dfsim.log').read_text()[-2000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    s, pl, oc = out["scheduler"], out["placement"], out["outcomes"]
+    leg = {"peers": out["peers"], "events": out["events"], "wall_s": out["wall_s"], "virtual_s": out["virtual_s"],
+           "events_per_sec": out["events_per_sec"], "time_compression": out["time_compression"],
+           "sched_rounds": s["rounds"], "sched_s": s["sched_s"], "sched_rounds_per_s": s["rounds_per_s"],
+           "rounds_with_parents": pl["rounds"], "same_region_frac": pl["same_region_frac"],
+           "same_rack_frac": pl["same_rack_frac"], "mean_parent_rtt_ms": pl["mean_parent_rtt_ms"],
+           "completed": oc["completed"], "failed": oc["failed"],
+           "departed_parent_rounds": out["violations"]["departed_parent_rounds"],
+           "scoring": s["scoring"], "native_rounds": s["native_rounds"], "mirror_rounds": s["mirror_rounds"],
+           "mirror_stale_rounds": s["mirror_stale_rounds"], "mirror_full_syncs": s["mirror_full_syncs"]}
+    print_sim_leg("(b) ml-native (dfsim process)", leg)
+    print(f"    native rounds {s['native_rounds']} of {s['rounds']}, mirror {s['mirror_rounds']} + stale "
+          f"{s['mirror_stale_rounds']}, full syncs {s['mirror_full_syncs']} for {out['schedulers']} schedulers")
+    # tests/test_sim.py's coverage contract, and the departed-parent invariant
+    if s["scoring"] != "ml-native" or s["native_rounds"] < s["rounds"] - out["schedulers"] \
+            or s["mirror_rounds"] + s["mirror_stale_rounds"] != s["native_rounds"] \
+            or s["mirror_full_syncs"] != out["schedulers"] or leg["departed_parent_rounds"]:
+        raise AssertionError(f"the ml-native leg missed its coverage contract: {s}, {out['violations']}")
+    return leg
+
+
+def sim_expected_scores(scorer, record: dict, index: dict) -> np.ndarray:
+    """What the evaluator serves for a recorded round from ``scorer``: the
+    base blend when the child host (or every parent host) is unknown to the
+    model, else the model's scores with the base blend for unknown parents."""
+    feats = np.asarray(record["feats"], np.float32)
+    base = (feats @ BASE_WEIGHTS).astype(np.float32)
+    c = index.get(record["child_host"])
+    rows = [index.get(q["host"]) for q in record["parents"]]
+    known = np.array([r is not None for r in rows])
+    if c is None or not known.any():
+        return base
+    ml = scorer.score(feats, child=np.full(len(feats), c, np.int32),
+                      parent=np.array([r if r is not None else 0 for r in rows], np.int32))
+    return np.where(known, ml, base).astype(np.float32)
+
+
+def sim_trained(ds, tmp: pathlib.Path, base: dict) -> dict:
+    """Leg (c): a GNN trained on the card from leg (a)'s records serves a
+    second run of the same swarm (see the module docstring)."""
+    t0 = time.perf_counter()
+    state, losses = asyncio.run(train_gnn.train_async(SIM_TRAIN, ds.graph, ds.pairs, steps=SIM_TRAIN_STEPS,
+                                                      steps_per_call=STEPS_PER_CALL, device="cuda"))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print(f"  (c) trained on the card: {len(losses)} steps in {train_s:.2f} s ({len(losses) / train_s:.1f} steps/s), "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f} (means of the first and last ten {head:.5f} -> {tail:.5f})")
+    if not (np.isfinite(losses).all() and tail < head):
+        raise AssertionError(f"the sim-trained GNN's losses did not fall: {losses}")
+    path = artifacts.save_artifact(tmp / "gnn-sim", model_type="gnn", version="sim-trained", params=state.model,
+                                   config={"hidden": SIM_TRAIN.hidden, "embed_dim": SIM_TRAIN.embed_dim,
+                                           "num_layers": SIM_TRAIN.num_layers})
+    artifacts.save_graph(path, ds.graph, ds.host_index)
+    artifacts.save_native(path, train_gnn.make_model(SIM_TRAIN), state.model.state_dict(), ds.graph, device="cuda")
+    digest = artifacts.artifact_digest(path)
+    del state
+    old = os.environ.get("DRAGONFLY_NATIVE_SCORER")
+    os.environ["DRAGONFLY_NATIVE_SCORER"] = "0"
+    try:
+        t0 = time.perf_counter()
+        scorer, index = manager_link.load_scorer_verified(str(path), digest)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        cpu_scorer, cpu_index = manager_link.load_scorer_verified(str(path), digest, device="cpu")
+    finally:
+        if old is None:
+            os.environ.pop("DRAGONFLY_NATIVE_SCORER", None)
+        else:
+            os.environ["DRAGONFLY_NATIVE_SCORER"] = old
+    if not isinstance(scorer, GNNScorer) or scorer.device.type != "cuda" or cpu_index != index:
+        raise AssertionError(f"the sim-trained artifact loaded as {type(scorer).__name__} on "
+                             f"{getattr(scorer, 'device', None)}, not GNNScorer on the card")
+    card_after_load = card_mib()
+
+    sc = sim_scenarios.flash_crowd(peers=SIM_PEERS, seed=SIM_SEED)
+    services = list(sc.sim.services.values())
+    for svc in services:
+        # as a ManagerLink installs a model, through the evaluator's public
+        # attach_scorer, with no micro-batcher and no dispatcher: the sim's
+        # loop is a virtual clock's, on which nothing a thread resolves lands
+        svc.decisions = DecisionRecorder(sample_rate=SIM_DECISION_SAMPLE,
+                                         topk=svc.scheduling.config.candidate_parent_limit, clock=sc.sim.clock)
+        svc.evaluator.decisions = svc.decisions
+        svc.evaluator.attach_scorer(scorer, index, version="sim-trained")
+    modes = [MLEvaluator._mode_of(svc.evaluator.serving_bundle.scorer) for svc in services]
+    if modes != ["torch"] * len(services) or serving_gauges()["torch"] != 1.0:
+        raise AssertionError(f"the sim's evaluators serve as {modes}, gauges {serving_gauges()}")
+    before = fallbacks()
+    try:
+        rep = sc.sim.run()
+        verdict = scenario_verdict(sc, rep)
+        records = [r for svc in services for r in svc.decision_records(limit=1 << 20)["records"]]
+    finally:
+        sc.sim.close()
+    after = fallbacks()
+    fell = {r: after[r] - before[r] for r in FALLBACK_REASONS}
+    leg = sim_leg(rep, sc.content_length)
+    gaps = [float(np.abs(sim_expected_scores(cpu_scorer, r, index) - np.asarray(r["scores"])).max())
+            for r in records]
+    by_mode: dict[str, int] = {}
+    for r in records:
+        by_mode[r["serving_mode"]] = by_mode.get(r["serving_mode"], 0) + 1
+    leg.update(check=verdict, base_fallbacks=fell, records=len(records), records_by_mode=by_mode,
+               rescored_max_abs=max(gaps, default=float("nan")), train_s=train_s, train_steps=len(losses),
+               steps_per_s=len(losses) / train_s, first_loss=losses[0], last_loss=losses[-1],
+               load_verify_s=load_s, card_mib_after_load=card_after_load, card_mib_after_run=card_mib(),
+               dataset=base["dataset"])
+    print_sim_leg("(c) sim-trained GNN on the card", leg)
+    print(f"    dataset {base['dataset']}; load + verify {load_s:.2f} s; card {card_after_load:.1f} MiB allocated "
+          f"after the load, {leg['card_mib_after_run']:.1f} after the run; fallbacks {fell}; {len(records)} "
+          f"decision records {by_mode}, re-scored on the CPU within {leg['rescored_max_abs']:.3g}")
+    print(f"    placement, learned against base (same seed): same region {leg['same_region_frac']} vs "
+          f"{base['same_region_frac']}, same rack {leg['same_rack_frac']} vs {base['same_rack_frac']}, mean parent "
+          f"RTT {leg['mean_parent_rtt_ms']} vs {base['mean_parent_rtt_ms']} ms; scenario check (not gated): "
+          f"{verdict or 'passed'}")
+    if fell["scorer_error"] or fell["no_scorer"] or fell["degraded"]:
+        raise AssertionError(f"the sim-trained leg fell back to base: {fell}")
+    if fell["unknown_hosts"] > SIM_UNKNOWN_MAX * leg["sched_rounds"]:
+        raise AssertionError(f"{fell['unknown_hosts']} of {leg['sched_rounds']} rounds had hosts the model "
+                             "does not know")
+    if leg["departed_parent_rounds"] or leg["completed"] < 9_500 * SIM_PEERS // 10_000:
+        raise AssertionError(f"the sim-trained leg: {leg}")
+    if by_mode.get("torch", 0) < SIM_MIN_RECORDS or not max(gaps) <= SCORE_MAX_ABS:
+        raise AssertionError(f"the decision records: {len(records)} ({by_mode}), re-scored within "
+                             f"{max(gaps, default=None)}")
+    return leg
+
+
+def sim_phase() -> dict:
+    """The swarm simulator over the port's control plane: legs (a), (b) and
+    (c) (see the module docstring); (b) runs as a process beside the others."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        proc, deadline = sim_native_start(tmp)
+        try:
+            base, ds = sim_base(tmp)
+            trained = sim_trained(ds, tmp, base)
+            native = sim_native_finish(proc, deadline, tmp)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+    return {"base": base, "ml_native": native, "trained": trained, "host_cpu": host_cpu(),
             "wall_s": time.perf_counter() - t_phase}
 
 
@@ -2474,6 +2875,16 @@ def main() -> int:
         if any(seen.values()):
             raise AssertionError(f"the rollout path launched a kernel it does not call: {seen}")
         print(json.dumps({"rollout": numbers, "card": card}))
+
+    with phase("sim"):
+        zero_counts()
+        numbers = sim_phase()
+        # no kernel is on this path: the simulator is host code, the learned
+        # model trains with SAGELayer's plain ops and serves with GNNScorer's
+        numbers["kernel_launches"] = seen = counts()
+        if any(seen.values()):
+            raise AssertionError(f"the sim path launched a kernel it does not call: {seen}")
+        print(json.dumps({"sim": numbers, "card": card}))
 
     with phase("kernels"):
         g = cluster.graph.to("cuda")

@@ -133,7 +133,7 @@ def default_rules() -> list[AlertRule]:
             bound=0.0, window_s=60.0, for_s=10.0,
             description="any federation sync errors sustained in the window",
         ),
-        AlertRule(  # dflint: disable=DF030 the port's sim/ (not ported yet) declares it; the rule set stays the reference's
+        AlertRule(
             name="sim_departed_parent",
             kind="rate",
             metric="dragonfly_sim_departed_parent_rounds_total",
