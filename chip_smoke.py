@@ -257,7 +257,43 @@ Phases, each of which must hold or the run exits non-zero at once:
              rounds/s inside schedule_candidate_parents, placement and
              outcomes; for (c) also the dataset, train seconds and steps/s,
              load + verify seconds, card memory and fallbacks by reason.
-15. kernels  each kernel against its plain PyTorch version on the card, at the
+15. daemon   the daemon's P2P data plane in the port's processes (python -m
+             ...daemon.server, the port's dfget, dfcache and dfmodel), each
+             started with sys.executable and a deadline, on free ports from
+             the OS, all stopped when the phase ends, whatever happens. The
+             free disk under the phase's temp directory first; an origin
+             process (aiohttp FileResponse, which serves Range) with a 1 GiB
+             file of seeded bytes (numpy, seed 0), counting GETs and bytes;
+             the port's manager process and one port scheduler process
+             (--evaluator ml --manager, DRAGONFLY_NATIVE_SCORER=0 so that it
+             serves GNNScorer, every round recorded); a seed daemon (--seed)
+             and three peer daemons, each with its own storage, socket,
+             127.0.0.x address, hostname and upload port chosen before boot,
+             so that the trainer's telemetry (synth_telemetry_records, 200,000
+             downloads and probes over 16384 hosts, the first four renamed to
+             the daemons' host ids) names them: a GNN at the trainer's widths
+             (hidden 256, embed 128, 3 layers, 100 steps) trained on the card
+             by the port's trainer and published through the manager, until
+             the scheduler's frame reads torch and its log says it serves on
+             cuda. dfget through peer 1, then through peers 2 and 3 at once:
+             every output's sha256 equals the file's, the origin served the
+             file's bytes once, peers 2 and 3 took every piece from parents
+             (each daemon's "task done" line), and every round of the task
+             scored torch with ML_BASE_FALLBACK_TOTAL 0 for every reason (the
+             scheduler's decision_records). Then kill -9 peer 1 and restart it
+             on its storage (its log names the task's recovered pieces before
+             DAEMON_READY), dfcache rm the task on peer 3 and dfget it again
+             through peer 3: bit-exact, no new GET at the origin. Then the
+             sharded phase's ~1 GiB of bf16 and f32 tensors in four
+             safetensors files and the published GNN's weights as a fifth,
+             dfmodel publish through the seed, dfmodel fetch through peer 2
+             (every piece from parents), stage_checkpoint_dir(device="cuda"):
+             every tensor bit-equal to its source, and a GNNScorer from the
+             staged weights scoring 256 rounds of 40 within 1e-6 of one from
+             the in-memory weights. Each dfget's MiB/s (host clock) and pieces
+             by parent, the task's rounds, the fallbacks, the publish and
+             fetch seconds, the fetch and staging GB/s.
+16. kernels  each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
@@ -275,16 +311,20 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import collections
 import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import os
 import pathlib
 import platform
+import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -317,7 +357,13 @@ from dragonfly2_tpu_torch.rpc.balancer import ConsistentHashRing
 from dragonfly2_tpu_torch.rpc.core import RpcServer
 from dragonfly2_tpu_torch.scheduler import manager_link, scheduling
 from dragonfly2_tpu_torch.scheduler import metrics as sched_metrics
-from dragonfly2_tpu_torch.scheduler.evaluator import SERVING_MODES, DecisionRecorder, MLEvaluator
+from dragonfly2_tpu_torch.scheduler.evaluator import (
+    DECISION_RING_DEFAULT,
+    FALLBACK_REASONS,
+    SERVING_MODES,
+    DecisionRecorder,
+    MLEvaluator,
+)
 from dragonfly2_tpu_torch.scheduler.announcer import CHUNK_ROWS, TrainerAnnouncer
 from dragonfly2_tpu_torch.scheduler.service import HostInfo, SchedulerService, TaskMeta
 from dragonfly2_tpu_torch.sim import scenarios as sim_scenarios
@@ -328,6 +374,7 @@ from dragonfly2_tpu_torch.trainer import artifacts, dataset, train_gnn, train_ml
 from dragonfly2_tpu_torch.trainer.server import start_trainer, stop_trainer
 from dragonfly2_tpu_torch.trainer.service import TrainerConfig, TrainerService, pack_records
 from dragonfly2_tpu_torch.trainer.synthetic import make_cluster, sample_batch, synth_telemetry_records
+from dragonfly2_tpu_torch.utils import idgen
 from dragonfly2_tpu_torch.utils import proc as proc_lib
 
 NUM_HOSTS, NUM_NEIGHBORS, GRAPH_SEED = 16384, 16, 7
@@ -370,7 +417,6 @@ STRESS_TORCH_WORKER_ROUNDS, BUSY_ROUNDS = 400, 300
 # the evaluator phase: the stress phase's rounds, concurrency and leg length,
 # a bare MicroBatchScorer leg and an evaluate_async leg in turn, EVAL_REPS times
 EVAL_ROUNDS, EVAL_REPS = STRESS_ROUNDS, 3
-FALLBACK_REASONS = ("no_scorer", "unknown_hosts", "scorer_error", "degraded")
 # the scheduler phase: the port's SchedulerService at the GNN serving cell's
 # cluster, each host reporting SCHED_PROBES seeded probes; a wave is
 # SCHED_TASKS tasks of SCHED_PEERS peers (one scheduling round of up to 40
@@ -409,6 +455,15 @@ SWAP_RESULTS = ("ok", "missing", "digest_mismatch", "load_error", "swap_error", 
 SIM_PEERS, SIM_SEED, SIM_DEADLINE_S = 10_000, 0, 600.0
 SIM_TRAIN = train_gnn.GNNTrainConfig(hidden=256, embed_dim=128, num_layers=3, batch_size=4096)
 SIM_TRAIN_STEPS, SIM_DECISION_SAMPLE, SIM_MIN_RECORDS, SIM_UNKNOWN_MAX = 100, 0.05, 128, 0.01
+# the daemon phase: a 1 GiB file of seeded bytes (a large image layer or a
+# checkpoint shard) through a seed and three peer daemons; the scheduler's
+# GNN trained on the card at the trainer's widths (the ingest phase's 100
+# GNN steps) from DAEMON_RECORDS download and probe records each over the
+# serving cluster's hosts; the processes' deadlines; the free disk the phase
+# needs (the file in the origin, four stores, the outputs and the checkpoint)
+DAEMON_FILE_BYTES, DAEMON_FILE_SEED, DAEMON_RECORDS, DAEMON_RECORD_SEED = 1 << 30, 0, 200_000, 13
+DAEMON_BOOT_S, DAEMON_ATTACH_S, DAEMON_DOWNLOAD_S, DAEMON_ROUND_SEED = 120.0, 120.0, 300.0, 43
+DAEMON_DISK_BYTES = 10 << 30
 REPO = pathlib.Path(__file__).resolve().parent
 # tests/test_ops.py's own tolerances for the Pallas kernel against XLA
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
@@ -2503,6 +2558,464 @@ def sim_phase() -> dict:
             "wall_s": time.perf_counter() - t_phase}
 
 
+ORIGIN_SCRIPT = '''\
+"""The daemon phase's origin: serves the files of one directory with Range
+(aiohttp FileResponse) and counts GETs, HEADs and the bytes of each GET.
+    python origin.py <dir>    prints ORIGIN_READY <port>; GET /_stats for counts."""
+import asyncio, os, signal, sys
+from aiohttp import web
+
+ROOT, STATS = sys.argv[1], {"gets": 0, "heads": 0, "bytes": 0}
+
+
+async def serve(request):
+    path = os.path.join(ROOT, os.path.basename(request.match_info["name"]))
+    if not os.path.isfile(path):
+        raise web.HTTPNotFound()
+    if request.method == "HEAD":
+        STATS["heads"] += 1
+    else:
+        STATS["gets"] += 1
+        STATS["bytes"] += len(range(os.path.getsize(path))[request.http_range])
+    return web.FileResponse(path)
+
+
+async def stats(request):
+    return web.json_response(STATS)
+
+
+async def main():
+    app = web.Application()
+    app.router.add_get("/_stats", stats)
+    app.router.add_get("/{name}", serve)
+    runner = web.AppRunner(app, access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    stop = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        asyncio.get_running_loop().add_signal_handler(sig, stop.set)
+    print("ORIGIN_READY", site._server.sockets[0].getsockname()[1], flush=True)
+    await stop.wait()
+    await runner.cleanup()
+
+
+asyncio.run(main())
+'''
+
+
+class DaemonCluster:
+    """The daemon phase's processes: each started with ``sys.executable``,
+    its standard error in a log file under the phase's directory, and all of
+    them stopped by ``close()`` (terminate, then kill what is left after
+    10 s)."""
+
+    def __init__(self, tmp: pathlib.Path, env: dict):
+        self.tmp, self.env = tmp, env
+        self.procs: dict[str, subprocess.Popen] = {}
+        self.logs: dict[str, pathlib.Path] = {}
+
+    def spawn(self, name: str, args: list[str], extra_env: dict | None = None) -> subprocess.Popen:
+        self.logs[name] = self.tmp / f"{name}.log"
+        with open(self.logs[name], "w") as err:
+            p = subprocess.Popen([sys.executable, *args], cwd=self.tmp, env={**self.env, **(extra_env or {})},
+                                 stdout=subprocess.PIPE, stderr=err, text=True)
+        self.procs[name] = p
+        return p
+
+    def ready(self, name: str, prefix: str, deadline: float) -> str:
+        """The first word after ``prefix`` on ``name``'s ready line, read by
+        the deadline; the end of its log when it did not start."""
+        try:
+            return proc_lib.ready_address(self.procs[name], prefix, deadline)
+        except RuntimeError as e:
+            raise AssertionError(f"{name}: {e}: {self.logs[name].read_text()[-2000:]}") from None
+
+    def stop(self, name: str, kill: bool = False) -> None:
+        p = self.procs.pop(name)
+        if kill:
+            p.kill()
+        else:
+            p.terminate()
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        p.stdout.close()
+
+    def close(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.terminate()
+        for name in list(self.procs):
+            self.stop(name)
+
+
+def free_port(ip: str) -> int:
+    with contextlib.closing(socket.socket()) as s:
+        s.bind((ip, 0))
+        return s.getsockname()[1]
+
+
+def write_seeded_file(path: pathlib.Path, nbytes: int, seed: int) -> str:
+    """``nbytes`` of seeded bytes (numpy, in 64 MiB chunks); their sha256."""
+    rng, h = np.random.default_rng(seed), hashlib.sha256()
+    with open(path, "wb") as f:
+        for off in range(0, nbytes, 64 << 20):
+            chunk = rng.integers(0, 256, min(64 << 20, nbytes - off), dtype=np.uint8).tobytes()
+            h.update(chunk)
+            f.write(chunk)
+    return h.hexdigest()
+
+
+def file_sha256(path: pathlib.Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(16 << 20):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def daemon_records(host_ids: list[str]) -> tuple[np.ndarray, np.ndarray]:
+    """The trainer's telemetry for the daemon phase: synthetic records over
+    the serving cluster's 16384 hosts, the first of which are renamed to the
+    daemons' host ids, so the trained graph holds every daemon."""
+    downloads, probes = synth_telemetry_records(DAEMON_RECORDS, DAEMON_RECORDS, NUM_HOSTS, seed=DAEMON_RECORD_SEED)
+    for i, hid in enumerate(host_ids):
+        old, new = f"host-{i:06d}".encode(), hid.encode()
+        for arr, col in ((downloads, "child_host_id"), (downloads, "parent_host_id"),
+                         (probes, "src_host_id"), (probes, "dst_host_id")):
+            arr[col][arr[col] == old] = new
+    return downloads, probes
+
+
+async def daemon_train(tmp: pathlib.Path, maddr: str, host_ids: list[str]) -> dict:
+    """The records through the port's announcer to the port's trainer on the
+    card, which publishes to the manager process; the GNN run's row."""
+    downloads, probes = daemon_records(host_ids)
+    store = TelemetryStorage(tmp / "telemetry")
+    store.downloads.extend(downloads)
+    store.probes.extend(probes)
+    store.flush()
+    cfg = TrainerConfig(model_dir=str(tmp / "models"), gnn_steps=INGEST_GNN_STEPS, gnn_steps_per_call=10)
+    trainer, service = await start_trainer(cfg, port=0, manager_addr=maddr)
+    try:
+        return await rollout_train(store, trainer.address, service, "chip-smoke-daemon")
+    finally:
+        await stop_trainer(trainer, service)
+
+
+async def wait_serving(maddr: str, hostname: str, deadline: float) -> dict:
+    """The scheduler's stats frame at the manager, once it reads torch."""
+    from dragonfly2_tpu_torch.rpc.manager import RemoteManagerClient
+
+    mc = RemoteManagerClient(maddr)
+    try:
+        while True:
+            frames = {m["hostname"]: m["frame"] for m in (await mc.cluster_stats())["members"]}
+            if frames.get(hostname, {}).get("serving_mode") == "torch":
+                return frames[hostname]
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the scheduler's frame by the deadline: {frames.get(hostname)}")
+            await asyncio.sleep(0.25)
+    finally:
+        await mc.close()
+
+
+async def task_rounds(saddr: str, task_id: str) -> dict:
+    """The scheduler's decision records of the task (every round: the
+    process samples 1 in 1) and its ML_BASE_FALLBACK_TOTAL by reason."""
+    from dragonfly2_tpu_torch.rpc.scheduler import RemoteSchedulerClient
+
+    client = RemoteSchedulerClient(saddr)
+    try:
+        return await client.decision_records(task_id=task_id, limit=DECISION_RING_DEFAULT, with_features=False)
+    finally:
+        await client.close()
+
+
+def done_line(log: pathlib.Path, task_id: str) -> dict:
+    """The conductor's last ``task done`` line for the task in a daemon's log:
+    its pieces by parent peer and its bytes from the source."""
+    pat = re.compile(r"task_id=" + task_id[:16] + r".*task done: (\d+) piece\(s\) from parents (\{.*\}), "
+                     r"(\d+) byte\(s\) from source")
+    found = [m for m in map(pat.search, log.read_text().splitlines()) if m]
+    if not found:
+        raise AssertionError(f"no 'task done' line for {task_id[:16]} in {log.name}")
+    m = found[-1]
+    return {"pieces": int(m.group(1)), "by_parent": json.loads(m.group(2)), "source_bytes": int(m.group(3))}
+
+
+def parent_names(by_parent: dict, names: dict) -> dict:
+    """Pieces by parent daemon: a peer id is ``<ip>-<hostname>-<random>``."""
+    out: dict[str, int] = {}
+    for pid, n in by_parent.items():
+        name = next((k for k, h in names.items() if f"-{h}-" in pid), pid)
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def dfget_run(cluster: DaemonCluster, url: str, out: pathlib.Path, sock: str) -> subprocess.Popen:
+    """The port's dfget as a process, through the daemon on ``sock``."""
+    return subprocess.Popen([sys.executable, "-m", "dragonfly2_tpu_torch.cli.dfget", url, "-O", str(out),
+                             "--sock", sock, "--no-spawn", "--timeout", str(DAEMON_DOWNLOAD_S)],
+                            cwd=cluster.tmp, env=cluster.env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def dfget_wait(p: subprocess.Popen, deadline: float) -> None:
+    try:
+        _, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        raise AssertionError("dfget ran past the download deadline") from None
+    if p.returncode:
+        raise AssertionError(f"dfget exited {p.returncode}: {err[-2000:]}")
+
+
+def origin_stats(port: int) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/_stats", timeout=10) as r:
+        return json.loads(r.read())
+
+
+def daemon_checkpoint(directory: pathlib.Path, gnn_sd: dict) -> dict[str, np.ndarray]:
+    """About 1 GiB of bf16 and f32 tensors from a seed (the sharded phase's
+    source) in four files, and the published GNN's weights as a fifth;
+    returns every tensor by name (bf16 as uint16 bits)."""
+    directory.mkdir()
+    src = stage_source()
+    files = {"model-00001-of-00004.safetensors": ["layers.0.w", "layers.1.w"],
+             "model-00002-of-00004.safetensors": ["layers.2.w", "layers.3.w"],
+             "model-00003-of-00004.safetensors": ["layers.4.w", "layers.5.w", "layers.6.w"],
+             "model-00004-of-00004.safetensors": ["f32.0", "f32.1", "f32.2"]}
+    for name, keys in files.items():
+        stlib.write_safetensors(directory / name, {k: src[k] for k in keys},
+                                bf16_names=[k for k in keys if k.startswith("layers.")])
+    gnn = {}
+    for k, t in gnn_sd.items():
+        t = t.detach().cpu().contiguous()
+        gnn[f"gnn.{k}"] = t.view(torch.int16).numpy().view(np.uint16) if t.dtype == torch.bfloat16 else t.numpy()
+    stlib.write_safetensors(directory / "gnn.safetensors", gnn,
+                            bf16_names=[f"gnn.{k}" for k, t in gnn_sd.items() if t.dtype == torch.bfloat16])
+    return {**src, **gnn}
+
+
+def daemon_scorer_check(model, sd: dict, staged: dict, graph) -> float:
+    """256 rounds of 40 scored on the card from the staged GNN weights and
+    from the in-memory ones: the largest score gap."""
+    staged_sd = {k.removeprefix("gnn."): v for k, v in staged.items() if k.startswith("gnn.")}
+    if staged_sd.keys() != sd.keys():
+        raise AssertionError(f"the staged GNN holds {sorted(staged_sd)[:4]}…, not the model's parameters")
+    rng = np.random.default_rng(DAEMON_ROUND_SEED)
+    n = graph.node_feats.shape[0]
+    child = rng.integers(0, n, (ROUNDS, CANDIDATES), dtype=np.int32)
+    parent = rng.integers(0, n, (ROUNDS, CANDIDATES), dtype=np.int32)
+    feats = rng.random((ROUNDS, CANDIDATES, FEATURE_DIM), dtype=np.float32)
+    scores = []
+    for weights in (staged_sd, sd):
+        scorer = GNNScorer(model, weights, device="cuda")
+        scorer.refresh(graph)
+        scores.append(drive_rounds(scorer, feats, child, parent)[1])
+    return float(np.abs(scores[0] - scores[1]).max())
+
+
+def daemon_phase() -> dict:
+    """The daemon's P2P data plane in the port's processes (see the module
+    docstring)."""
+    t_phase = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-daemon-"))
+    free = shutil.disk_usage(tmp).free
+    print(f"  free disk under {tmp}: {free / 2**30:.1f} GiB")
+    if free < DAEMON_DISK_BYTES:
+        raise AssertionError(f"the phase needs {DAEMON_DISK_BYTES / 2**30:.0f} GiB free, {free / 2**30:.1f} there")
+    env = {**os.environ, "PYTHONPATH": str(REPO), "DRAGONFLY_TS_INTERVAL": "0.5"}
+    cluster = DaemonCluster(tmp, env)
+    names = {"seed": "df-seed", "peer1": "df-peer1", "peer2": "df-peer2", "peer3": "df-peer3"}
+    ips = {k: f"127.0.0.{i + 2}" for i, k in enumerate(names)}
+    ports = {k: free_port(ips[k]) for k in names}
+    host_ids = {k: f"{names[k]}-{ports[k]}" for k in names}
+    socks = {k: str(tmp / f"{k}.sock") for k in names}
+    numbers: dict = {"host_ids": host_ids, "file_bytes": DAEMON_FILE_BYTES}
+    try:
+        deadline = time.monotonic() + DAEMON_BOOT_S
+        (tmp / "origin.py").write_text(ORIGIN_SCRIPT)
+        (tmp / "www").mkdir()
+        cluster.spawn("origin", [str(tmp / "origin.py"), str(tmp / "www")])
+        cluster.spawn("manager", ["-m", "dragonfly2_tpu_torch.manager.server", "--host", "127.0.0.1", "--port", "0",
+                                  "--db", str(tmp / "manager.db")])
+        t0 = time.perf_counter()
+        want = write_seeded_file(tmp / "www" / "blob.bin", DAEMON_FILE_BYTES, DAEMON_FILE_SEED)
+        numbers["origin_file_s"] = time.perf_counter() - t0
+        oport = int(cluster.ready("origin", "ORIGIN_READY", deadline))
+        maddr = cluster.ready("manager", "manager ready", deadline).removeprefix("rpc=")
+        cluster.spawn("scheduler", ["-m", "dragonfly2_tpu_torch.scheduler.server", "--host", "127.0.0.1",
+                                    "--port", "0", "--evaluator", "ml", "--manager", maddr, "--hostname", "df-sched",
+                                    "--keepalive-interval", "1", "--model-watch-interval", "1"],
+                      {"DRAGONFLY_NATIVE_SCORER": "0", "DRAGONFLY_DECISION_SAMPLE": "1"})
+        saddr = cluster.ready("scheduler", "SCHEDULER_READY", deadline)
+        for k in names:
+            cluster.spawn(k, ["-m", "dragonfly2_tpu_torch.daemon.server", "--scheduler", saddr,
+                              "--storage", str(tmp / k), "--sock", socks[k], "--ip", ips[k],
+                              "--hostname", names[k], "--upload-port", str(ports[k]),
+                              "--announce-interval", "2", *(["--seed"] if k == "seed" else [])])
+        t0 = time.perf_counter()
+        row = asyncio.run(daemon_train(tmp, maddr, list(host_ids.values())))
+        numbers["train_to_published_s"] = time.perf_counter() - t0
+        for k in names:
+            if cluster.ready(k, "DAEMON_READY", deadline) != socks[k]:
+                raise AssertionError(f"{k} is not ready on {socks[k]}")
+        t0 = time.perf_counter()
+        frame = asyncio.run(wait_serving(maddr, "df-sched", time.monotonic() + DAEMON_ATTACH_S))
+        numbers["published_to_torch_frame_s"] = time.perf_counter() - t0
+        if "via engine torch on cuda" not in cluster.logs["scheduler"].read_text():
+            raise AssertionError("the scheduler does not serve the model on the card")
+        model, gnn_sd = artifacts.load_gnn(row["artifact"])
+        graph, index = artifacts.load_graph(row["artifact"])
+        missing = [h for h in host_ids.values() if h not in index]
+        if missing or len(index) != NUM_HOSTS:
+            raise AssertionError(f"the model's graph: {len(index)} hosts, missing the daemons {missing}")
+        print(f"  origin, manager, scheduler and 4 daemons up; GNN {row['version']} trained on the card from "
+              f"{2 * DAEMON_RECORDS} records over {NUM_HOSTS} hosts (the daemons' ids among them) and published in "
+              f"{numbers['train_to_published_s']:.1f} s; the scheduler's frame reads torch "
+              f"{numbers['published_to_torch_frame_s']:.1f} s later (serving {frame.get('serving_mode')!r})")
+
+        # downloads: peer 1, then peers 2 and 3 at once
+        url = f"http://127.0.0.1:{oport}/blob.bin"
+        task_id = idgen.task_id(url)
+        outs = {k: tmp / f"{k}.out" for k in ("peer1", "peer2", "peer3")}
+        runs: dict[str, dict] = {}
+        dl_deadline = time.monotonic() + DAEMON_DOWNLOAD_S
+        t0 = time.perf_counter()
+        dfget_wait(dfget_run(cluster, url, outs["peer1"], socks["peer1"]), dl_deadline)
+        runs["peer1"] = {"s": time.perf_counter() - t0}
+        after_first = origin_stats(oport)
+        t0 = time.perf_counter()
+        ps = {k: dfget_run(cluster, url, outs[k], socks[k]) for k in ("peer2", "peer3")}
+        for k, p in ps.items():
+            dfget_wait(p, dl_deadline)
+            runs[k] = {"s": time.perf_counter() - t0}
+        after_all = origin_stats(oport)
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            shas = dict(zip(outs, pool.map(file_sha256, outs.values())))
+        for k, run in runs.items():
+            run.update(done_line(cluster.logs[k], task_id), mib_per_s=DAEMON_FILE_BYTES / run["s"] / 2**20)
+            run["by_parent"] = parent_names(run["by_parent"], names)
+            print(f"  dfget through {k}: {run['s']:.2f} s, {run['mib_per_s']:.1f} MiB/s (host clock, "
+                  f"dfget process to exit), pieces by parent {run['by_parent']}, {run['source_bytes']} bytes "
+                  f"from the source")
+        if any(s != want for s in shas.values()):
+            raise AssertionError(f"sha256 of the outputs {shas} != the origin file's {want}")
+        if after_all["bytes"] != DAEMON_FILE_BYTES or after_all["gets"] != after_first["gets"]:
+            raise AssertionError(f"the origin served {after_all} (after peer 1: {after_first}), "
+                                 f"not the file's {DAEMON_FILE_BYTES} bytes once")
+        for k in ("peer2", "peer3"):
+            total = runs[k]["pieces"]
+            if runs[k]["source_bytes"] or sum(runs[k]["by_parent"].values()) != total or not total:
+                raise AssertionError(f"{k} did not take every piece from parents: {runs[k]}")
+        rounds = asyncio.run(task_rounds(saddr, task_id))
+        modes = [(r["serving_mode"], r["model_version"]) for r in rounds["records"]]
+        fb = rounds["fallbacks"]
+        print(f"  the scheduler's rounds for the task: {len(modes)} ({dict(collections.Counter(modes))}); "
+              f"ML_BASE_FALLBACK_TOTAL {fb}; origin {after_all}")
+        if not modes or any(m != ("torch", row["version"]) for m in modes) or any(fb.values()):
+            raise AssertionError(f"rounds {modes}, fallbacks {fb}: not every round scored torch on the card")
+        for p in outs.values():
+            p.unlink()
+        numbers.update(downloads=runs, origin=after_all, task_rounds=len(modes), fallbacks=fb)
+
+        # restart: kill -9 peer 1, restart it on the same storage, then drop
+        # the task on peer 3 and fetch it again through peer 3
+        cluster.stop("peer1", kill=True)
+        pathlib.Path(socks["peer1"]).unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        cluster.spawn("peer1-restart", ["-m", "dragonfly2_tpu_torch.daemon.server", "--scheduler", saddr,
+                                        "--storage", str(tmp / "peer1"), "--sock", socks["peer1"], "--ip",
+                                        ips["peer1"], "--hostname", names["peer1"], "--upload-port",
+                                        str(ports["peer1"]), "--announce-interval", "2"])
+        cluster.ready("peer1-restart", "DAEMON_READY", time.monotonic() + DAEMON_BOOT_S)
+        restart_s = time.perf_counter() - t0
+        recovered = [ln for ln in cluster.logs["peer1-restart"].read_text().splitlines()
+                     if f"task {task_id[:12]}: recovered" in ln]
+        if not recovered:
+            raise AssertionError("the restarted daemon's log names no recovered piece of the task")
+        rc, text = cli_process("dragonfly2_tpu_torch.cli.dfcache", ["--sock", socks["peer3"], "--no-spawn", "rm",
+                                                                    task_id], env)
+        if rc:
+            raise AssertionError(f"dfcache rm exited {rc}")
+        t0 = time.perf_counter()
+        dfget_wait(dfget_run(cluster, url, outs["peer3"], socks["peer3"]), dl_deadline)
+        again = {"s": time.perf_counter() - t0, **done_line(cluster.logs["peer3"], task_id)}
+        again["by_parent"] = parent_names(again["by_parent"], names)
+        after_restart = origin_stats(oport)
+        sha = file_sha256(outs["peer3"])
+        outs["peer3"].unlink()
+        print(f"  peer 1 killed and restarted in {restart_s:.2f} s: {recovered[-1].split('daemon.engine ')[-1]}; the task "
+              f"removed from peer 3 and fetched again in {again['s']:.2f} s, pieces by parent "
+              f"{again['by_parent']}; origin {after_restart}")
+        if sha != want or after_restart["gets"] != after_all["gets"] or again["source_bytes"]:
+            raise AssertionError(f"after the restart: sha256 {sha}, origin {after_restart}, {again}")
+        rounds = asyncio.run(task_rounds(saddr, task_id))
+        fb = rounds["fallbacks"]
+        if any(r["serving_mode"] != "torch" for r in rounds["records"]) or any(fb.values()):
+            raise AssertionError(f"the restart's rounds fell back: {fb}")
+        numbers["restart"] = {"restart_s": restart_s, "refetch": again, "task_rounds": len(rounds["records"])}
+
+        # checkpoint: published through the seed, fetched through peer 2,
+        # staged onto the card
+        src = daemon_checkpoint(tmp / "ckpt", gnn_sd)
+        nbytes = sum(p.stat().st_size for p in (tmp / "ckpt").iterdir())
+        t0 = time.perf_counter()
+        rc, text = cli_process("dragonfly2_tpu_torch.cli.dfmodel", ["--sock", socks["seed"], "--no-spawn",
+                                                                    "publish", str(tmp / "ckpt")], env)
+        publish_s = time.perf_counter() - t0
+        if rc:
+            raise AssertionError(f"dfmodel publish exited {rc}")
+        manifest = tmp / "ckpt" / "dragonfly-checkpoint.json"
+        t0 = time.perf_counter()
+        rc, text = cli_process("dragonfly2_tpu_torch.cli.dfmodel", ["--sock", socks["peer2"], "--no-spawn",
+                                                                    "fetch", str(manifest), "-O",
+                                                                    str(tmp / "staged")], env)
+        fetch_s = time.perf_counter() - t0
+        if rc:
+            raise AssertionError(f"dfmodel fetch exited {rc}")
+        entries = json.loads(manifest.read_text())["files"]
+        fetched = [done_line(cluster.logs["peer2"], e["task_id"]) for e in entries]
+        if any(f["source_bytes"] or sum(f["by_parent"].values()) != f["pieces"] for f in fetched):
+            raise AssertionError(f"the checkpoint did not arrive peer to peer: {fetched}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = staging.stage_checkpoint_dir(tmp / "staged", device="cuda")
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        wrong = [k for k, a in src.items() if staged_bits(staged[k]).tobytes()
+                 != (a.view(np.int16) if a.dtype == np.uint16 else a).tobytes()]
+        if wrong or len(staged) != len(src):
+            raise AssertionError(f"staged tensors differ from their source: {wrong[:4]} ({len(staged)} of {len(src)})")
+        gap = daemon_scorer_check(model, gnn_sd, staged, graph)
+        del staged
+        print(f"  checkpoint: {len(entries)} files, {nbytes / 2**30:.3f} GiB; publish through the seed "
+              f"{publish_s:.2f} s, fetch through peer 2 {fetch_s:.2f} s ({nbytes / fetch_s / 1e9:.2f} GB/s, host "
+              f"clock, dfmodel process to exit), every piece from parents; staged onto the card in {stage_s:.3f} s "
+              f"({nbytes / stage_s / 1e9:.2f} GB/s, closed by a synchronise), bit-equal; a GNNScorer from the "
+              f"staged weights against one from the in-memory weights: largest score gap {gap:.3g} over "
+              f"{ROUNDS} rounds")
+        if gap > RELOAD_SCORE_MAX_ABS:
+            raise AssertionError(f"the staged GNN scores {gap} away from the in-memory one")
+        numbers["checkpoint"] = {"files": len(entries), "bytes": nbytes, "publish_s": publish_s,
+                                 "fetch_s": fetch_s, "fetch_gb_per_s": nbytes / fetch_s / 1e9,
+                                 "stage_s": stage_s, "stage_gb_per_s": nbytes / stage_s / 1e9,
+                                 "score_max_abs": gap}
+    finally:
+        cluster.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers.update(host_cpu=host_cpu(), wall_s=time.perf_counter() - t_phase)
+    return numbers
+
+
 def edge_case_inputs() -> dict:
     """Named (h, neighbors, mask) CPU inputs that each kernel must get right."""
     rng = np.random.default_rng(0)
@@ -2885,6 +3398,16 @@ def main() -> int:
         if any(seen.values()):
             raise AssertionError(f"the sim path launched a kernel it does not call: {seen}")
         print(json.dumps({"sim": numbers, "card": card}))
+
+    with phase("daemon"):
+        zero_counts()
+        numbers = daemon_phase()
+        # no kernel is on this path: the daemons are host code, the scheduler
+        # scores with GNNScorer's plain ops and the trainer runs SAGELayer's
+        numbers["kernel_launches"] = seen = counts()
+        if any(seen.values()):
+            raise AssertionError(f"the daemon path launched a kernel it does not call: {seen}")
+        print(json.dumps({"daemon": numbers, "card": card}))
 
     with phase("kernels"):
         g = cluster.graph.to("cuda")

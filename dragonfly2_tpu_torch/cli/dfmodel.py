@@ -1,5 +1,14 @@
-"""dfmodel: drive the serving-model rollout state machine (the port's own
-copy of dragonfly2_tpu/cli/dfmodel.py).
+"""dfmodel: publish / fetch model checkpoints over the P2P fabric, and drive
+the serving-model rollout state machine (the port's own copy of
+dragonfly2_tpu/cli/dfmodel.py).
+
+`publish` imports a checkpoint directory into the P2P cache through the
+local daemon and emits a manifest; `fetch` pulls a manifest's files onto
+this host through the piece engine (warm peers serve, the origin is touched
+once per cluster):
+
+  python -m dragonfly2_tpu_torch.cli.dfmodel publish ./llama-3-8b
+  python -m dragonfly2_tpu_torch.cli.dfmodel fetch ./llama-3-8b/dragonfly-checkpoint.json -O ./staged
 
 The rollout operations talk straight to the MANAGER registry — no daemon
 involved:
@@ -14,12 +23,6 @@ shadowing version active (the manual gate when auto_promote is off);
 `rollback` rejects the current active version and re-activates the previous
 one — the registry half of what a scheduler's auto-rollback does on a
 post-swap health regression.
-
-The parser is the reference's, `publish` and `fetch` included: they import
-a checkpoint directory into the P2P cache and pull a manifest's files
-through the piece engine, which needs the daemon. The port has no daemon
-yet (ROADMAP.md §1, queue item 4), so both exit 2 with a message naming it,
-as the port's servers do for flags they have not ported.
 """
 
 from __future__ import annotations
@@ -27,17 +30,11 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import sys
 
-from dragonfly2_tpu_torch.rpc.core import RpcError
-
-# the reference's daemon socket default (its dfget.DEFAULT_SOCK), kept so the
-# parser takes the same flags; nothing here opens it
-DEFAULT_SOCK = "/tmp/dragonfly2_tpu_daemon.sock"
-DAEMON_LEFT_OUT = (
-    "dfmodel {cmd}: needs the daemon (publish/fetch ride its P2P piece "
-    "engine), which the port has not ported yet — ROADMAP.md §1, queue item 4"
-)
+from dragonfly2_tpu_torch.cli.dfget import DEFAULT_SOCK, ensure_daemon
+from dragonfly2_tpu_torch.rpc.core import RpcClient, RpcError
 
 ROLLOUT_CMDS = ("status", "promote", "rollback")
 
@@ -173,8 +170,39 @@ async def _amain(args: argparse.Namespace) -> int:
             print(f"error: dfmodel {args.cmd} requires --manager", file=sys.stderr)
             return 2
         return await _rollout_main(args)
-    print(f"error: {DAEMON_LEFT_OUT.format(cmd=args.cmd)}", file=sys.stderr)
-    return 2
+    if not await ensure_daemon(
+        args.sock, args.scheduler, args.storage,
+        no_spawn=args.no_spawn, spawn_timeout=args.spawn_timeout,
+    ):
+        return 1
+    client = RpcClient(args.sock, timeout=args.timeout)
+    try:
+        # abspath everything: the detached daemon's cwd is not ours
+        if args.cmd == "publish":
+            result = await client.call(
+                "publish_checkpoint",
+                {"directory": os.path.abspath(args.directory), "name": args.name},
+            )
+            print(json.dumps(result))
+        elif args.cmd == "fetch":
+            manifest = args.manifest
+            if "://" not in manifest:
+                manifest = os.path.abspath(manifest)
+            result = await client.call(
+                "fetch_checkpoint",
+                {
+                    "manifest": manifest,
+                    "dest": os.path.abspath(args.output),
+                    "concurrency": args.concurrency,
+                },
+            )
+            print(json.dumps(result))
+        return 0
+    except RpcError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    finally:
+        await client.close()
 
 
 def main() -> None:

@@ -1,4 +1,6 @@
-"""The port's daemon package. Only ``engine.InProcessSchedulerClient`` is
-here so far: the swarm simulator reaches each scheduler through it. The peer
-engine, conductor, storage, upload server and the daemon's RPC front are not
-ported yet (ROADMAP.md §1, queue item 4)."""
+"""The port's peer daemon: the P2P data plane of dragonfly2_tpu/daemon/ —
+peer engine, conductor, storage, source clients, piece pipeline, raw range
+client, traffic shaper, upload server, prober, YAML config and the daemon
+process (``python -m dragonfly2_tpu_torch.daemon.server``). The proxy,
+object gateway, hdfs/oras sources and the mTLS data plane are still to port
+(ROADMAP.md §1, 'Still to do' item 4)."""

@@ -19,7 +19,11 @@ dragonfly2_tpu/observability/tracing.py: ``SpanContext`` (with its
   ``DEFAULT_SERVICE_SAMPLE_RATE`` through ``configure_default_tracer``.
 - Finished sampled spans go to an in-memory ring (``finished()``).
 
-Not ported: the JSON-lines and OTLP exporters and the W3C traceparent codec.
+- A context crosses the daemon's HTTP piece path as a W3C ``traceparent``
+  header (``SpanContext.traceparent`` / ``from_traceparent``); the port's
+  RPC client stamps none.
+
+Not ported: the JSON-lines and OTLP exporters.
 ``TracingSection`` keeps the reference's fields, so one YAML file configures
 either package's scheduler; the port's scheduler refuses a section that
 names an exporter (scheduler/server.py).
@@ -43,6 +47,8 @@ _current_span: contextvars.ContextVar[Optional["Span"]] = contextvars.ContextVar
     "dragonfly_torch_current_span", default=None
 )
 
+TRACEPARENT_HEADER = "traceparent"
+
 # finished spans kept for finished(); the oldest drop first
 _RING_SIZE = 2048
 
@@ -57,6 +63,20 @@ class SpanContext:
     trace_id: str
     span_id: str
     sampled: bool = True
+
+    def traceparent(self) -> str:
+        # trace-flags 01 = sampled (W3C trace context); the flag IS the
+        # all-or-nothing head-sampling decision riding the wire
+        return f"00-{self.trace_id}-{self.span_id}-{'01' if self.sampled else '00'}"
+
+    @classmethod
+    def from_traceparent(cls, header: str | None) -> Optional["SpanContext"]:
+        if not header:
+            return None
+        parts = header.split("-")
+        if len(parts) != 4:
+            return None
+        return cls(trace_id=parts[1], span_id=parts[2], sampled=parts[3] != "00")
 
 
 class Span:

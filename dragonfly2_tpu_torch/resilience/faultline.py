@@ -15,9 +15,13 @@ reference at the same places:
                 bytes before they are hashed
     model.swap  scheduler/manager_link.ManagerLink._install,   latency error
                 before the new serving bundle is built
-
-The reference's other points sit in modules the port has not copied yet
-(the daemon's fetch, source and storage paths).
+    parent.fetch       daemon/conductor: parent piece HTTP fetch   latency error drop
+    parent.piece_body  fetched piece payload                       truncate corrupt
+    parent.metadata    parent metadata long-poll                   latency error drop
+    source.read        daemon/source: origin chunk reads           latency error drop
+    source.body        origin chunk payload                        truncate corrupt
+    storage.write      daemon/storage: piece writes                latency error
+    storage.meta       metadata (save_metadata) flush              latency error
 
 Fault kinds:
     latency   sleep `param` seconds (default 0.05) before proceeding

@@ -70,6 +70,9 @@ logger = logging.getLogger(__name__)
 # beside the reference's; "jax" is the reference's GNNScorer, which a
 # reference scheduler's own loader hands this evaluator
 SERVING_MODES = ("native", "torch", "jax", "base")
+# the reasons a round of the ml evaluator is counted under in
+# ML_BASE_FALLBACK_TOTAL when the base evaluator serves it
+FALLBACK_REASONS = ("no_scorer", "unknown_hosts", "scorer_error", "degraded")
 
 # Bad-node thresholds (ref evaluator_base.go:193-229)
 _MIN_SAMPLES_FOR_SIGMA = 30

@@ -22,7 +22,7 @@ import numpy as np
 
 from dragonfly2_tpu_torch.observability.tracing import default_tracer
 from dragonfly2_tpu_torch.scheduler import metrics
-from dragonfly2_tpu_torch.scheduler.evaluator import Evaluator, build_pair_features, new_evaluator
+from dragonfly2_tpu_torch.scheduler.evaluator import FALLBACK_REASONS, Evaluator, build_pair_features, new_evaluator
 from dragonfly2_tpu_torch.scheduler.resource import (
     GCPolicy,
     HostType,
@@ -915,7 +915,10 @@ class SchedulerService:
     ) -> dict[str, Any]:
         """Recorded scoring decisions + the drift/serving context `dfml
         explain` replays them against (served over the `decision_records`
-        RPC and GET /debug/decisions)."""
+        RPC). ``fallbacks`` adds to the reference's answer the process's
+        ML_BASE_FALLBACK_TOTAL by reason: the port has no /metrics yet
+        (ROADMAP.md §1, the debug server), and a round that fell back is
+        recorded without its reason."""
         return {
             "recorder": self.decisions.stats(),
             "records": self.decisions.snapshot(
@@ -924,4 +927,8 @@ class SchedulerService:
             ),
             "serving_version": getattr(self.evaluator, "serving_version", ""),
             "drift": self.drift.snapshot(),
+            "fallbacks": {
+                reason: metrics.ML_BASE_FALLBACK_TOTAL.labels(reason=reason).value
+                for reason in FALLBACK_REASONS
+            },
         }

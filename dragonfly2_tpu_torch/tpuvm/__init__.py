@@ -1,7 +1,7 @@
 """Checkpoint staging for the port: the safetensors reader/writer and the
-shard-aware staging onto the card or a mesh, the port of
-dragonfly2_tpu/tpuvm/ (its P2P checkpoint fan-out, ``checkpoint.py``, is
-not ported yet)."""
+shard-aware staging onto the card or a mesh, and the P2P checkpoint fan-out
+(``checkpoint.py``: publish and fetch through a daemon's piece engine), the
+port of dragonfly2_tpu/tpuvm/."""
 
 from dragonfly2_tpu_torch.tpuvm.safetensors import (
     read_header,

@@ -1,6 +1,8 @@
 """Plugin loading by import path: the port's copy of ``load_object``,
-``require_methods`` and ``PluginError`` from dragonfly2_tpu/utils/plugins.py,
-for the port's ``new_evaluator("plugin:pkg.mod:attr")``.
+``require_methods``, ``parse_plugin_map`` and ``PluginError`` from
+dragonfly2_tpu/utils/plugins.py, for the port's
+``new_evaluator("plugin:pkg.mod:attr")`` and the daemon's source clients
+(DRAGONFLY_SOURCE_PLUGINS = ``"scheme=pkg.mod:factory,..."``).
 
 A spec is ``"pkg.module:attr"``, resolved at boot; a factory attr is
 CALLED (with optional kwargs), anything else is used as-is. Loaded objects
@@ -48,3 +50,17 @@ def require_methods(obj: Any, methods: Iterable[str], *, spec: str, kind: str) -
             f"methods: {missing}"
         )
     return obj
+
+
+def parse_plugin_map(raw: str) -> dict[str, str]:
+    """"key=pkg.mod:attr,key2=..." → {key: spec} (the env-var form)."""
+    out: dict[str, str] = {}
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        key, sep, spec = part.partition("=")
+        if not sep or not key or not spec:
+            raise PluginError(f"bad plugin map entry {part!r}: want 'key=pkg.mod:attr'")
+        out[key.strip()] = spec.strip()
+    return out

@@ -1,0 +1,429 @@
+"""The port's daemon as a process, with dfget, dfcache and dfmodel.
+
+- ``python -m dragonfly2_tpu_torch.daemon.server`` prints ``DAEMON_READY
+  <sock> <upload port>``; importing the module loads no torch; SIGTERM right
+  after the ready line stops it with exit code 0 and removes its socket.
+- Either package's dfget drives either package's daemon process, bit-exact,
+  the origin serving each file once; a file fetched by one package's daemon
+  goes to the other's peer to peer (the origin not touched again).
+- dfcache import, stat, export and rm on the port's daemon; the reference's
+  dfcache reads the same stat.
+- dfmodel publish and fetch through the daemons: the port's manifest equals
+  the reference's apart from ``created_at``; a checkpoint published by the
+  reference's daemon is fetched by the port's, bit-equal.
+- The flags and YAML sections whose machinery the port has not ported exit 2
+  naming the ROADMAP.md item.
+
+One port scheduler process, one port daemon and one reference daemon serve
+the module; every process has a deadline of 60 s.
+"""
+
+import asyncio
+import concurrent.futures
+import hashlib
+import io
+import json
+import os
+import shutil
+import signal
+import subprocess
+import sys
+import threading
+import time
+from contextlib import redirect_stderr, redirect_stdout
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from aiohttp import web
+
+from dragonfly2_tpu.cli import dfcache as ref_dfcache
+from dragonfly2_tpu.cli import dfget as ref_dfget
+from dragonfly2_tpu.cli import dfmodel as ref_dfmodel
+from dragonfly2_tpu_torch.cli import dfcache, dfget, dfmodel
+from dragonfly2_tpu_torch.daemon import server as daemon_server
+from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
+from dragonfly2_tpu_torch.utils.proc import ready_address
+from dragonfly2_tpu_torch.utils.pieces import parse_http_range
+
+# One intra-op thread: the suite runs six xdist workers on the host's cores
+# beside JAX's thread pools (see tests/test_torch_evaluator.py).
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+DEADLINE_S = 60.0
+PORT_DAEMON = [sys.executable, "-m", "dragonfly2_tpu_torch.daemon.server"]
+# the reference's daemon, its conductor draining deferred writes with the
+# port's: the reference's `_drain_writes` can spin forever on Python 3.12
+# and hold the daemon's loop (ROADMAP.md §3)
+REF_DAEMON = [sys.executable, "-c", (
+    "from dragonfly2_tpu.daemon import conductor as ref\n"
+    "from dragonfly2_tpu_torch.daemon import conductor as port\n"
+    "ref.PeerTaskConductor._drain_writes = port.PeerTaskConductor._drain_writes\n"
+    "from dragonfly2_tpu.daemon.server import main\n"
+    "main()\n")]
+
+
+@pytest.fixture(autouse=True)
+def _tracers_as_found():
+    """dfget's main configures its process's default tracer, as a CLI's
+    entry point does (service name, head-sampling rate); these tests call it
+    in process, so each test leaves both packages' tracers as it found
+    them for the tests that run after it in the same process."""
+    from dragonfly2_tpu.observability import tracing as ref_tracing
+    from dragonfly2_tpu_torch.observability import tracing as port_tracing
+
+    saved = [(t, t.service, t.sample_rate) for t in (ref_tracing.default_tracer(), port_tracing.default_tracer())]
+    yield
+    for t, service, rate in saved:
+        t.service, t.sample_rate = service, rate
+
+
+def _env() -> dict:
+    return {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1", "JAX_PLATFORMS": "cpu"}
+
+
+class ThreadOrigin:
+    """An aiohttp origin with Range support on its own loop and thread,
+    counting the bytes it serves per file."""
+
+    def __init__(self):
+        self.files: dict[str, bytes] = {}
+        self.sent: dict[str, int] = {}
+        self.port = 0
+        self._loop = asyncio.new_event_loop()
+        self._ready = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def add(self, name: str, data: bytes) -> str:
+        self.files[name] = data
+        return f"http://127.0.0.1:{self.port}/{name}"
+
+    async def _handle(self, request):
+        name = request.match_info["name"]
+        data = self.files.get(name)
+        if data is None:
+            raise web.HTTPNotFound()
+        if request.method == "HEAD":
+            return web.Response(headers={"Content-Length": str(len(data)), "Accept-Ranges": "bytes"})
+        rng = request.headers.get("Range")
+        if rng:
+            r = parse_http_range(rng, len(data))
+            body = data[r.start:r.start + r.length]
+            self.sent[name] = self.sent.get(name, 0) + len(body)
+            return web.Response(status=206, body=body,
+                                headers={"Content-Range": f"bytes {r.start}-{r.end}/{len(data)}"})
+        self.sent[name] = self.sent.get(name, 0) + len(data)
+        return web.Response(body=data)
+
+    def _run(self):
+        asyncio.set_event_loop(self._loop)
+        app = web.Application()
+        app.router.add_get("/{name}", self._handle)
+        runner = web.AppRunner(app, access_log=None)
+        self._loop.run_until_complete(runner.setup())
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        self._loop.run_until_complete(site.start())
+        self.port = site._server.sockets[0].getsockname()[1]
+        self._ready.set()
+        self._loop.run_forever()
+        self._loop.run_until_complete(runner.cleanup())
+        self._loop.close()
+
+    def start(self):
+        self._thread.start()
+        assert self._ready.wait(DEADLINE_S)
+        return self
+
+    def stop(self):
+        self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(DEADLINE_S)
+
+
+def _spawn(cmd: list[str], cwd: Path, log: Path) -> subprocess.Popen:
+    with open(log, "w") as err:
+        return subprocess.Popen(cmd, cwd=cwd, env=_env(), stdout=subprocess.PIPE, stderr=err, text=True)
+
+
+def _stop(procs: list[subprocess.Popen]) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in procs:
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        p.stdout.close()
+
+
+def _daemon(cmd: list[str], tmp: Path, name: str, sched: str, procs: list) -> dict:
+    sock = tmp / f"{name}.sock"
+    p = _spawn([*cmd, "--scheduler", sched, "--storage", str(tmp / name), "--sock", str(sock),
+                "--hostname", name], tmp, tmp / f"{name}.log")
+    procs.append(p)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        line = pool.submit(p.stdout.readline)
+        try:
+            line = line.result(timeout=DEADLINE_S)
+        except concurrent.futures.TimeoutError:
+            p.kill()
+            raise
+    assert line.startswith("DAEMON_READY "), (line, (tmp / f"{name}.log").read_text()[-2000:])
+    return {"sock": str(sock), "ready": line.split()[1:], "proc": p, "log": tmp / f"{name}.log"}
+
+
+@pytest.fixture(scope="module")
+def cluster(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("daemons")
+    procs: list[subprocess.Popen] = []
+    origin = ThreadOrigin().start()
+    try:
+        sched = _spawn([sys.executable, "-m", "dragonfly2_tpu_torch.scheduler.server", "--host", "127.0.0.1",
+                        "--port", "0"], tmp, tmp / "scheduler.log")
+        procs.append(sched)
+        addr = ready_address(sched, "SCHEDULER_READY", time.monotonic() + DEADLINE_S)
+        yield {
+            "tmp": tmp, "origin": origin, "scheduler": addr,
+            "port": _daemon(PORT_DAEMON, tmp, "port-d", addr, procs),
+            "ref": _daemon(REF_DAEMON, tmp, "ref-d", addr, procs),
+        }
+    finally:
+        _stop(procs)
+        origin.stop()
+
+
+def cli(main, argv: list[str], *, prog: str = "cli", sys_argv: bool = False) -> tuple[int, str, str]:
+    """Exit code, standard output and standard error of one CLI call;
+    ``sys_argv`` for a ``main()`` that reads ``sys.argv``."""
+    out, err = io.StringIO(), io.StringIO()
+    saved = sys.argv
+    with redirect_stdout(out), redirect_stderr(err):
+        try:
+            if sys_argv:
+                sys.argv = [prog, *argv]
+                rc = main()
+            else:
+                rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
+        finally:
+            sys.argv = saved
+    return rc or 0, out.getvalue(), err.getvalue()
+
+
+def _payload(seed: int, size: int = 9 << 20) -> bytes:
+    return np.random.default_rng(seed).integers(0, 256, size, dtype=np.uint8).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the process
+
+
+def test_the_daemon_prints_its_ready_line(cluster):
+    sock, port = cluster["port"]["ready"]
+    assert sock == cluster["port"]["sock"] and int(port) > 0
+    assert Path(sock).exists()
+
+
+def test_importing_the_daemon_server_loads_no_torch():
+    probe = ("import sys, dragonfly2_tpu_torch.daemon.server, dragonfly2_tpu_torch.cli.dfget; "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'jax', 'flax', 'dragonfly2_tpu')))")
+    p = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=_env(), capture_output=True, text=True,
+                       timeout=DEADLINE_S)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "[]"
+
+
+def test_sigterm_stops_the_daemon_with_exit_code_0(tmp_path, cluster):
+    procs: list[subprocess.Popen] = []
+    try:
+        d = _daemon(PORT_DAEMON, tmp_path, "term-d", cluster["scheduler"], procs)
+        t0 = time.monotonic()
+        d["proc"].send_signal(signal.SIGTERM)
+        assert d["proc"].wait(timeout=10) == 0, d["log"].read_text()[-2000:]
+        assert time.monotonic() - t0 < 10
+        assert not Path(d["sock"]).exists()
+    finally:
+        _stop(procs)
+
+
+# ---------------------------------------------------------------------------
+# dfget against either package's daemon
+
+
+@pytest.mark.parametrize("cli_pkg,daemon", [("port", "ref"), ("ref", "port"), ("port", "port"), ("ref", "ref")])
+def test_dfget_drives_either_packages_daemon(cluster, tmp_path, cli_pkg, daemon):
+    name = f"{cli_pkg}-cli-{daemon}-daemon.bin"
+    data = _payload(len(name))
+    url = cluster["origin"].add(name, data)
+    main = dfget.main if cli_pkg == "port" else ref_dfget.main
+    out = tmp_path / "out.bin"
+    rc, text, err = cli(main, [url, "-O", str(out), "--sock", cluster[daemon]["sock"], "--no-spawn",
+                               "--timeout", str(DEADLINE_S)])
+    assert rc == 0, err
+    assert text.startswith(f"downloaded {url} -> {out}: {len(data)} bytes")
+    assert hashlib.sha256(out.read_bytes()).digest() == hashlib.sha256(data).digest()
+    assert cluster["origin"].sent[name] == len(data)
+
+
+@pytest.mark.parametrize("first,second", [("ref", "port"), ("port", "ref")])
+def test_a_file_crosses_the_packages_peer_to_peer(cluster, tmp_path, first, second):
+    """The second daemon takes every piece from the first's upload server:
+    the port's conductor from the reference's upload server, and the
+    reverse."""
+    name = f"p2p-{first}-then-{second}.bin"
+    data = _payload(len(name) + 100)
+    url = cluster["origin"].add(name, data)
+    for i, daemon in enumerate((first, second)):
+        out = tmp_path / f"out{i}.bin"
+        rc, _, err = cli(dfget.main, [url, "-O", str(out), "--sock", cluster[daemon]["sock"], "--no-spawn",
+                                      "--timeout", str(DEADLINE_S)])
+        assert rc == 0, err
+        assert out.read_bytes() == data
+        assert cluster["origin"].sent[name] == len(data)
+
+
+# ---------------------------------------------------------------------------
+# dfcache and dfmodel
+
+
+def test_dfcache_import_stat_export_rm(cluster, tmp_path):
+    sock = ["--sock", cluster["port"]["sock"], "--no-spawn", "--timeout", str(DEADLINE_S)]
+    blob = tmp_path / "blob.bin"
+    blob.write_bytes(_payload(77, 5 << 20))
+    rc, out, err = cli(dfcache.main, [*sock, "import", str(blob), "--tag", "t"], prog="dfcache", sys_argv=True)
+    assert rc == 0, err
+    imported = json.loads(out)
+    task = imported["task_id"]
+    rc, out, err = cli(dfcache.main, [*sock, "stat", task], prog="dfcache", sys_argv=True)
+    assert rc == 0, err
+    stat = json.loads(out)
+    assert stat == {"task_id": task, "content_length": 5 << 20, "pieces": imported["pieces"],
+                    "total_pieces": imported["pieces"], "done": True}
+    ref_rc, ref_out, _ = cli(ref_dfcache.main, [*sock, "stat", task], prog="dfcache", sys_argv=True)
+    assert (ref_rc, json.loads(ref_out)) == (0, stat)
+    copy = tmp_path / "copy.bin"
+    rc, out, err = cli(dfcache.main, [*sock, "export", task, "-O", str(copy)], prog="dfcache", sys_argv=True)
+    assert rc == 0 and copy.read_bytes() == blob.read_bytes(), err
+    rc, out, err = cli(dfcache.main, [*sock, "rm", task], prog="dfcache", sys_argv=True)
+    assert rc == 0 and out.strip() == f"deleted {task}"
+    rc, out, err = cli(dfcache.main, [*sock, "stat", task], prog="dfcache", sys_argv=True)
+    assert rc == 1 and "not found" in err
+
+
+def _checkpoint(directory: Path, seed: int) -> Path:
+    rng = np.random.default_rng(seed)
+    directory.mkdir(parents=True)
+    stlib.write_safetensors(directory / "model-00001.safetensors",
+                            {"a": rng.standard_normal((256, 256)).astype(np.float32)})
+    stlib.write_safetensors(directory / "model-00002.safetensors",
+                            {"b": (rng.integers(0, 1 << 16, (512, 64))).astype(np.uint16)}, bf16_names=["b"])
+    (directory / "config.json").write_text(json.dumps({"model_type": "demo", "seed": seed}))
+    return directory
+
+
+def _manifest(directory: Path) -> dict:
+    m = json.loads((directory / "dragonfly-checkpoint.json").read_text())
+    assert m.pop("created_at") > 0
+    return m
+
+
+@pytest.mark.parametrize("argv", [["publish"], ["fetch", "-O"], ["--no-spawn", "publish", "--name", "custom"]],
+                         ids=["publish", "fetch-O", "no-spawn-publish-name"])
+def test_dfmodel_publish_and_fetch_through_the_daemon(cluster, tmp_path, argv):
+    seed = {"publish": 1, "fetch": 2}.get(argv[0], 3)
+    src = _checkpoint(tmp_path / "ref" / "ckpt", seed)
+    rest = argv[argv.index("--name"):] if "--name" in argv else []
+    head = (["--no-spawn"] if argv[0] == "--no-spawn" else []) + ["--timeout", str(DEADLINE_S)]
+    # the reference's dfmodel publishes through the reference's daemon
+    rc, out, err = cli(ref_dfmodel.main, [*head, "--sock", cluster["ref"]["sock"], "publish", str(src), *rest],
+                       prog="dfmodel", sys_argv=True)
+    assert rc == 0, err
+    want = _manifest(src)
+    if argv[0] == "fetch":
+        # the port's fetches the reference daemon's manifest peer to peer
+        dest = tmp_path / "staged"
+        rc, out, err = cli(dfmodel.main, [*head, "--sock", cluster["port"]["sock"], "fetch",
+                                          str(src / "dragonfly-checkpoint.json"), "-O", str(dest)],
+                           prog="dfmodel", sys_argv=True)
+        assert rc == 0, err
+        result = json.loads(out)
+        assert (result["name"], result["files"]) == ("ckpt", 3)
+        for entry in want["files"]:
+            assert (dest / entry["path"]).read_bytes() == (src / entry["path"]).read_bytes()
+        assert _manifest(dest) == want
+        return
+    port_src = shutil.copytree(src, tmp_path / "port" / "ckpt", ignore=shutil.ignore_patterns("dragonfly-*"))
+    rc, out, err = cli(dfmodel.main, [*head, "--sock", cluster["port"]["sock"], "publish", str(port_src), *rest],
+                       prog="dfmodel", sys_argv=True)
+    assert rc == 0, err
+    result = json.loads(out)
+    got = _manifest(port_src)
+    assert got == want
+    assert result == {"name": got["name"], "files": 3, "total_bytes": sum(e["size"] for e in got["files"]),
+                      "manifest": str(port_src) + "/dragonfly-checkpoint.json"}
+    assert got["name"] == (rest[1] if rest else "ckpt")
+
+
+# ---------------------------------------------------------------------------
+# refusals
+
+
+REFUSED = [
+    (["--proxy-port", "0"], "daemon/proxy.py"),
+    (["--proxy-rule", ".*blobs.*"], "daemon/proxy.py"),
+    (["--registry-mirror", "https://registry.example"], "daemon/proxy.py"),
+    (["--hijack-ca-dir", "ca"], "security/mitm.py"),
+    (["--hijack-host", ".*"], "security/mitm.py"),
+    (["--sni-proxy-port", "0"], "daemon/proxy.py"),
+    (["--object-storage-port", "0"], "daemon/objectgw.py"),
+    (["--object-storage-root", "objects"], "objectstorage/"),
+    (["--object-storage-backend", "s3"], "objectstorage/"),
+    (["--data-tls-dir", "certs"], "security/"),
+    (["--piece-cipher", "aes-gcm"], "security/"),
+    (["--vsock-port", "5000"], "rpc/core.py"),
+    (["--metrics-port", "0"], "observability/server.py"),
+    (["--config", "proxy.yaml"], "daemon/proxy.py"),
+    (["--config", "objects.yaml"], "daemon/objectgw.py"),
+    (["--config", "tracing.yaml"], "tracing exporters"),
+]
+
+
+def _yaml(tmp_path: Path) -> None:
+    (tmp_path / "proxy.yaml").write_text("proxy:\n  rules: ['.*blobs.*']\n")
+    (tmp_path / "objects.yaml").write_text("object_storage:\n  port: 9005\n")
+    (tmp_path / "tracing.yaml").write_text("tracing:\n  trace_file: /tmp/spans.jsonl\n")
+
+
+@pytest.mark.parametrize("args,item", REFUSED, ids=[" ".join(a) for a, _ in REFUSED])
+def test_flags_the_port_has_not_ported_are_refused(args, item, tmp_path):
+    _yaml(tmp_path)
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        rc, out, err = cli(daemon_server.main, ["--scheduler", "127.0.0.1:9", "--storage", "store",
+                                                "--sock", "d.sock", *args], prog="daemon", sys_argv=True)
+    finally:
+        os.chdir(cwd)
+    assert rc == 2
+    assert "ROADMAP.md" in err and item in err, err
+    assert "DAEMON_READY" not in out and not (tmp_path / "store").exists()
+
+
+def test_a_refused_flag_exits_2_as_a_process(tmp_path):
+    p = subprocess.run([*PORT_DAEMON, "--scheduler", "127.0.0.1:9", "--storage", str(tmp_path / "s"),
+                        "--sock", str(tmp_path / "d.sock"), "--data-tls-dir", str(tmp_path)],
+                       cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=DEADLINE_S)
+    assert p.returncode == 2
+    assert "ROADMAP.md" in p.stderr and "security/" in p.stderr
+    assert "DAEMON_READY" not in p.stdout
+
+
+def test_dfget_refuses_a_trace_file(tmp_path):
+    rc, out, err = cli(dfget.main, ["http://127.0.0.1:9/x", "-O", str(tmp_path / "x"), "--trace-file",
+                                    str(tmp_path / "t.jsonl"), "--no-spawn"])
+    assert rc == 2 and "ROADMAP.md" in err and out == ""

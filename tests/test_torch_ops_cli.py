@@ -15,8 +15,8 @@ own timestamps may differ too.
 Covered: ``dftop --once`` (0, and 3 with no member reporting), its screen;
 ``dfml explain`` (0, 2 for no record, 3 for a record whose scores were
 tampered with), ``decisions`` and ``train``; ``dfmodel status``, ``promote``
-and ``rollback``, and ``publish``/``fetch`` exiting 2 in the port with the
-ROADMAP.md item named; ``python -m dragonfly2_tpu_torch.cli.dfsim
+and ``rollback`` (``publish`` and ``fetch`` run through the daemons in
+tests/test_torch_daemon_server.py); ``python -m dragonfly2_tpu_torch.cli.dfsim
 flash-crowd --peers 300 --json`` as a subprocess against the reference's
 (both under one hash seed, on which the order of events depends), its
 human screen and its usage errors.
@@ -392,25 +392,15 @@ def test_dfmodel_promote_and_rollback(cluster):
         cluster["loop"](down())
 
 
-@pytest.mark.parametrize("argv", [["publish", "ckpt-dir"], ["fetch", "m.json", "-O", "out"],
-                                  ["--no-spawn", "publish", "ckpt-dir", "--name", "x"]])
-def test_dfmodel_publish_and_fetch_exit_2_naming_the_roadmap_item(argv, tmp_path):
-    cwd = os.getcwd()
-    os.chdir(tmp_path)
-    try:
-        rc, out, err = cli(dfmodel.main, argv, sys_argv=True)
-    finally:
-        os.chdir(cwd)
-    assert rc == 2 and out == "" and "ROADMAP.md §1, queue item 4" in err and "daemon" in err
-    assert list(tmp_path.iterdir()) == []  # it touched nothing
-
-
 def test_dfmodel_parser_is_the_references():
     for argv in (["status"], ["bogus"], ["promote", "--manager", "x", "--id", "no"]):
         rc, _, err = cli(dfmodel.main, argv, sys_argv=True)
         ref_rc, _, ref_err = cli(ref_dfmodel.main, argv, sys_argv=True)
         assert rc == ref_rc == 2 and err == ref_err, argv
-    assert "dfget" not in sys.modules.get("dragonfly2_tpu_torch.cli.dfmodel").__dict__
+    # publish and fetch go through the daemon as the reference's do
+    from dragonfly2_tpu_torch.cli import dfget
+
+    assert dfmodel.ensure_daemon is dfget.ensure_daemon and dfmodel.DEFAULT_SOCK == ref_dfmodel.DEFAULT_SOCK
 
 
 def test_the_clis_load_no_torch_jax_daemon_or_aiohttp():
