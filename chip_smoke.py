@@ -260,9 +260,10 @@ Phases, each of which must hold or the run exits non-zero at once:
 15. daemon   the daemon's P2P data plane in the port's processes (python -m
              ...daemon.server, the port's dfget, dfcache and dfmodel), each
              started with sys.executable and a deadline, on free ports from
-             the OS, all stopped when the phase ends, whatever happens. The
-             free disk under the phase's temp directory first; an origin
-             process (aiohttp FileResponse, which serves Range) with a 1 GiB
+             the OS, all stopped when the image phase (16) ends, whatever
+             happens. The free disk under the phase's temp directory first;
+             an origin process (aiohttp FileResponse, which serves Range) with
+             a 1 GiB
              file of seeded bytes (numpy, seed 0), counting GETs and bytes;
              the port's manager process and one port scheduler process
              (--evaluator ml --manager, DRAGONFLY_NATIVE_SCORER=0 so that it
@@ -293,7 +294,42 @@ Phases, each of which must hold or the run exits non-zero at once:
              the in-memory weights. Each dfget's MiB/s (host clock) and pieces
              by parent, the task's rounds, the fallbacks, the publish and
              fetch seconds, the fetch and staging GB/s.
-16. kernels  each kernel against its plain PyTorch version on the card, at the
+16. image    the daemon's image-acceleration front and its object and registry
+             origins, on the daemon phase's cluster, whose daemons booted with
+             them: a proxy on each peer with --registry-mirror at the registry
+             origin and --proxy-rule blobs/sha256.*; --hijack-ca-dir (a CA made by the port's ca.py, its
+             backend printed) and --hijack-host ^localhost$ on peers 2 and 3;
+             --sni-proxy-port on peer 3; --object-storage-port on the seed and
+             peers 1 and 2 over one fs root (a shared bucket); every daemon
+             trusting a second CA, which signs the origin's TLS leaf, through
+             SSL_CERT_FILE. The registry origin, a process of the script's own
+             (aiohttp), serves /v2/, a tagged OCI image manifest, its config
+             blob and eight layers of seeded bytes (numpy, seed 0) of 512, 256,
+             128, 64, 32, 16, 8 and 8 MiB (1 GiB) by digest with Range, on a
+             plain port and behind TLS on 443, counting GETs and bytes per path.
+             A docker-like client process pulls through peer 1's mirror (the
+             manifest with the OCI Accept header, then every blob, 3 at once),
+             then through peers 2 and 3 at once: every blob's sha256 equals its
+             digest, blobs come with X-Dragonfly-Via: p2p and the manifest
+             passes through, the origin served each layer's bytes once, every
+             peer took each multi-piece layer's pieces from parents (a
+             one-piece blob is named and counted), and every round of these
+             tasks scored torch on the published version with no fallback.
+             HTTPS hijack: CONNECT localhost:443 through peer 2's proxy, the
+             client trusting only the hijack CA, pulls the 256 MiB layer
+             bit-exact over P2P; CONNECT to this host's name is tunnelled to
+             the origin's own leaf; then, to see where the pull's time goes,
+             the same layer straight from the origin over TLS and again
+             through peer 2's hijack (from its storage). The SNI proxy on peer 3: the 128 MiB layer
+             as localhost over P2P, this host's name tunnelled. The gateway:
+             dfstore make-bucket and put of a 256 MiB seeded object through the
+             seed's gateway, get through peers 1 and 2 (sha256 equal, pieces
+             from parents), stat, ls and rm. dfget oras://localhost/<artifact>
+             through peer 3, held to its layer's bytes. Per leg: MiB/s (host
+             clock, the client process to its end), pieces by parent, rounds
+             and fallbacks, the origin's GETs and bytes; the CA backend and the
+             forge time of a first leaf.
+17. kernels  each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
@@ -325,6 +361,7 @@ import platform
 import re
 import shutil
 import socket
+import ssl
 import subprocess
 import sys
 import tempfile
@@ -366,6 +403,7 @@ from dragonfly2_tpu_torch.scheduler.evaluator import (
 )
 from dragonfly2_tpu_torch.scheduler.announcer import CHUNK_ROWS, TrainerAnnouncer
 from dragonfly2_tpu_torch.scheduler.service import HostInfo, SchedulerService, TaskMeta
+from dragonfly2_tpu_torch.security import CertForger, CertificateAuthority, write_issued
 from dragonfly2_tpu_torch.sim import scenarios as sim_scenarios
 from dragonfly2_tpu_torch.telemetry import TelemetryStorage
 from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
@@ -376,6 +414,7 @@ from dragonfly2_tpu_torch.trainer.service import TrainerConfig, TrainerService, 
 from dragonfly2_tpu_torch.trainer.synthetic import make_cluster, sample_batch, synth_telemetry_records
 from dragonfly2_tpu_torch.utils import idgen
 from dragonfly2_tpu_torch.utils import proc as proc_lib
+from dragonfly2_tpu_torch.utils.pieces import compute_piece_size, piece_count
 
 NUM_HOSTS, NUM_NEIGHBORS, GRAPH_SEED = 16384, 16, 7
 MODEL = dict(hidden=256, embed_dim=128, num_layers=3, head_hidden=256)
@@ -463,7 +502,18 @@ SIM_TRAIN_STEPS, SIM_DECISION_SAMPLE, SIM_MIN_RECORDS, SIM_UNKNOWN_MAX = 100, 0.
 # needs (the file in the origin, four stores, the outputs and the checkpoint)
 DAEMON_FILE_BYTES, DAEMON_FILE_SEED, DAEMON_RECORDS, DAEMON_RECORD_SEED = 1 << 30, 0, 200_000, 13
 DAEMON_BOOT_S, DAEMON_ATTACH_S, DAEMON_DOWNLOAD_S, DAEMON_ROUND_SEED = 120.0, 120.0, 300.0, 43
-DAEMON_DISK_BYTES = 10 << 30
+DAEMON_DISK_BYTES = 24 << 30
+# the image phase, on the daemon phase's cluster: an eight-layer OCI image of
+# seeded bytes (numpy, seed 0), 1 GiB in all, a few large base layers and many
+# small ones as real images have, pulled as docker pulls (3 blobs at once)
+# through the peers' registry mirror; the layers the hijack, SNI and oras://
+# legs fetch (by index); the object put through the gateway; the registry
+# origin's TLS port (the SNI proxy reaches a hijacked name on 443)
+IMAGE_LAYER_MIB, IMAGE_SEED, IMAGE_PULL_CONCURRENCY = (512, 256, 128, 64, 32, 16, 8, 8), 0, 3
+IMAGE_REPO, IMAGE_TAG, ORAS_REPO, ORAS_TAG = "library/dragonfly-demo", "v1", "library/dragonfly-artifact", "v1"
+IMAGE_HIJACK_LAYER, IMAGE_SNI_LAYER, IMAGE_ORAS_LAYER, IMAGE_TLS_PORT = 1, 2, 3, 443
+GATEWAY_OBJECT_BYTES, GATEWAY_SEED = 256 << 20, 1
+OCI_MANIFEST = "application/vnd.oci.image.manifest.v1+json"
 REPO = pathlib.Path(__file__).resolve().parent
 # tests/test_ops.py's own tolerances for the Pallas kernel against XLA
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
@@ -2823,195 +2873,724 @@ def daemon_scorer_check(model, sd: dict, staged: dict, graph) -> float:
     return float(np.abs(scores[0] - scores[1]).max())
 
 
-def daemon_phase() -> dict:
+def daemon_phase(stack: contextlib.ExitStack) -> tuple[dict, dict]:
     """The daemon's P2P data plane in the port's processes (see the module
-    docstring)."""
+    docstring): its numbers, and the cluster, left running for the image
+    phase (``image_front``'s flags are on its daemons); ``stack`` stops every
+    process and removes the phase's directory."""
     t_phase = time.perf_counter()
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-daemon-"))
+    stack.callback(shutil.rmtree, tmp, ignore_errors=True)
     free = shutil.disk_usage(tmp).free
     print(f"  free disk under {tmp}: {free / 2**30:.1f} GiB")
     if free < DAEMON_DISK_BYTES:
         raise AssertionError(f"the phase needs {DAEMON_DISK_BYTES / 2**30:.0f} GiB free, {free / 2**30:.1f} there")
     env = {**os.environ, "PYTHONPATH": str(REPO), "DRAGONFLY_TS_INTERVAL": "0.5"}
     cluster = DaemonCluster(tmp, env)
+    stack.callback(cluster.close)
     names = {"seed": "df-seed", "peer1": "df-peer1", "peer2": "df-peer2", "peer3": "df-peer3"}
     ips = {k: f"127.0.0.{i + 2}" for i, k in enumerate(names)}
     ports = {k: free_port(ips[k]) for k in names}
     host_ids = {k: f"{names[k]}-{ports[k]}" for k in names}
     socks = {k: str(tmp / f"{k}.sock") for k in names}
     numbers: dict = {"host_ids": host_ids, "file_bytes": DAEMON_FILE_BYTES}
+    front = image_front(tmp, ips)
+    deadline = time.monotonic() + DAEMON_BOOT_S
+    (tmp / "origin.py").write_text(ORIGIN_SCRIPT)
+    (tmp / "www").mkdir()
+    cluster.spawn("origin", [str(tmp / "origin.py"), str(tmp / "www")])
+    cluster.spawn("manager", ["-m", "dragonfly2_tpu_torch.manager.server", "--host", "127.0.0.1", "--port", "0",
+                              "--db", str(tmp / "manager.db")])
+    t0 = time.perf_counter()
+    want = write_seeded_file(tmp / "www" / "blob.bin", DAEMON_FILE_BYTES, DAEMON_FILE_SEED)
+    numbers["origin_file_s"] = time.perf_counter() - t0
+    oport = int(cluster.ready("origin", "ORIGIN_READY", deadline))
+    maddr = cluster.ready("manager", "manager ready", deadline).removeprefix("rpc=")
+    cluster.spawn("scheduler", ["-m", "dragonfly2_tpu_torch.scheduler.server", "--host", "127.0.0.1",
+                                "--port", "0", "--evaluator", "ml", "--manager", maddr, "--hostname", "df-sched",
+                                "--keepalive-interval", "1", "--model-watch-interval", "1"],
+                  {"DRAGONFLY_NATIVE_SCORER": "0", "DRAGONFLY_DECISION_SAMPLE": "1"})
+    saddr = cluster.ready("scheduler", "SCHEDULER_READY", deadline)
+    daemon_args = {k: ["-m", "dragonfly2_tpu_torch.daemon.server", "--scheduler", saddr, "--storage", str(tmp / k),
+                       "--sock", socks[k], "--ip", ips[k], "--hostname", names[k], "--upload-port", str(ports[k]),
+                       "--announce-interval", "2", *(["--seed"] if k == "seed" else []), *front["args"][k]]
+                   for k in names}
+    for k in names:
+        cluster.spawn(k, daemon_args[k], front["env"])
+    t0 = time.perf_counter()
+    row = asyncio.run(daemon_train(tmp, maddr, list(host_ids.values())))
+    numbers["train_to_published_s"] = time.perf_counter() - t0
+    for k in names:
+        if cluster.ready(k, "DAEMON_READY", deadline) != socks[k]:
+            raise AssertionError(f"{k} is not ready on {socks[k]}")
+    t0 = time.perf_counter()
+    frame = asyncio.run(wait_serving(maddr, "df-sched", time.monotonic() + DAEMON_ATTACH_S))
+    numbers["published_to_torch_frame_s"] = time.perf_counter() - t0
+    if "via engine torch on cuda" not in cluster.logs["scheduler"].read_text():
+        raise AssertionError("the scheduler does not serve the model on the card")
+    model, gnn_sd = artifacts.load_gnn(row["artifact"])
+    graph, index = artifacts.load_graph(row["artifact"])
+    missing = [h for h in host_ids.values() if h not in index]
+    if missing or len(index) != NUM_HOSTS:
+        raise AssertionError(f"the model's graph: {len(index)} hosts, missing the daemons {missing}")
+    print(f"  origin, manager, scheduler and 4 daemons up; GNN {row['version']} trained on the card from "
+          f"{2 * DAEMON_RECORDS} records over {NUM_HOSTS} hosts (the daemons' ids among them) and published in "
+          f"{numbers['train_to_published_s']:.1f} s; the scheduler's frame reads torch "
+          f"{numbers['published_to_torch_frame_s']:.1f} s later (serving {frame.get('serving_mode')!r})")
+
+    # downloads: peer 1, then peers 2 and 3 at once
+    url = f"http://127.0.0.1:{oport}/blob.bin"
+    task_id = idgen.task_id(url)
+    outs = {k: tmp / f"{k}.out" for k in ("peer1", "peer2", "peer3")}
+    runs: dict[str, dict] = {}
+    dl_deadline = time.monotonic() + DAEMON_DOWNLOAD_S
+    t0 = time.perf_counter()
+    dfget_wait(dfget_run(cluster, url, outs["peer1"], socks["peer1"]), dl_deadline)
+    runs["peer1"] = {"s": time.perf_counter() - t0}
+    after_first = origin_stats(oport)
+    t0 = time.perf_counter()
+    ps = {k: dfget_run(cluster, url, outs[k], socks[k]) for k in ("peer2", "peer3")}
+    for k, p in ps.items():
+        dfget_wait(p, dl_deadline)
+        runs[k] = {"s": time.perf_counter() - t0}
+    after_all = origin_stats(oport)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        shas = dict(zip(outs, pool.map(file_sha256, outs.values())))
+    for k, run in runs.items():
+        run.update(done_line(cluster.logs[k], task_id), mib_per_s=DAEMON_FILE_BYTES / run["s"] / 2**20)
+        run["by_parent"] = parent_names(run["by_parent"], names)
+        print(f"  dfget through {k}: {run['s']:.2f} s, {run['mib_per_s']:.1f} MiB/s (host clock, "
+              f"dfget process to exit), pieces by parent {run['by_parent']}, {run['source_bytes']} bytes "
+              f"from the source")
+    if any(s != want for s in shas.values()):
+        raise AssertionError(f"sha256 of the outputs {shas} != the origin file's {want}")
+    if after_all["bytes"] != DAEMON_FILE_BYTES or after_all["gets"] != after_first["gets"]:
+        raise AssertionError(f"the origin served {after_all} (after peer 1: {after_first}), "
+                             f"not the file's {DAEMON_FILE_BYTES} bytes once")
+    for k in ("peer2", "peer3"):
+        total = runs[k]["pieces"]
+        if runs[k]["source_bytes"] or sum(runs[k]["by_parent"].values()) != total or not total:
+            raise AssertionError(f"{k} did not take every piece from parents: {runs[k]}")
+    rounds = asyncio.run(task_rounds(saddr, task_id))
+    modes = [(r["serving_mode"], r["model_version"]) for r in rounds["records"]]
+    fb = rounds["fallbacks"]
+    print(f"  the scheduler's rounds for the task: {len(modes)} ({dict(collections.Counter(modes))}); "
+          f"ML_BASE_FALLBACK_TOTAL {fb}; origin {after_all}")
+    if not modes or any(m != ("torch", row["version"]) for m in modes) or any(fb.values()):
+        raise AssertionError(f"rounds {modes}, fallbacks {fb}: not every round scored torch on the card")
+    for p in outs.values():
+        p.unlink()
+    numbers.update(downloads=runs, origin=after_all, task_rounds=len(modes), fallbacks=fb)
+
+    # restart: kill -9 peer 1, restart it on the same storage, then drop
+    # the task on peer 3 and fetch it again through peer 3
+    cluster.stop("peer1", kill=True)
+    pathlib.Path(socks["peer1"]).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    cluster.spawn("peer1-restart", daemon_args["peer1"], front["env"])
+    cluster.ready("peer1-restart", "DAEMON_READY", time.monotonic() + DAEMON_BOOT_S)
+    restart_s = time.perf_counter() - t0
+    recovered = [ln for ln in cluster.logs["peer1-restart"].read_text().splitlines()
+                 if f"task {task_id[:12]}: recovered" in ln]
+    if not recovered:
+        raise AssertionError("the restarted daemon's log names no recovered piece of the task")
+    rc, text = cli_process("dragonfly2_tpu_torch.cli.dfcache", ["--sock", socks["peer3"], "--no-spawn", "rm",
+                                                                task_id], env)
+    if rc:
+        raise AssertionError(f"dfcache rm exited {rc}")
+    t0 = time.perf_counter()
+    dfget_wait(dfget_run(cluster, url, outs["peer3"], socks["peer3"]), dl_deadline)
+    again = {"s": time.perf_counter() - t0, **done_line(cluster.logs["peer3"], task_id)}
+    again["by_parent"] = parent_names(again["by_parent"], names)
+    after_restart = origin_stats(oport)
+    sha = file_sha256(outs["peer3"])
+    outs["peer3"].unlink()
+    print(f"  peer 1 killed and restarted in {restart_s:.2f} s: {recovered[-1].split('daemon.engine ')[-1]}; the task "
+          f"removed from peer 3 and fetched again in {again['s']:.2f} s, pieces by parent "
+          f"{again['by_parent']}; origin {after_restart}")
+    if sha != want or after_restart["gets"] != after_all["gets"] or again["source_bytes"]:
+        raise AssertionError(f"after the restart: sha256 {sha}, origin {after_restart}, {again}")
+    rounds = asyncio.run(task_rounds(saddr, task_id))
+    fb = rounds["fallbacks"]
+    if any(r["serving_mode"] != "torch" for r in rounds["records"]) or any(fb.values()):
+        raise AssertionError(f"the restart's rounds fell back: {fb}")
+    numbers["restart"] = {"restart_s": restart_s, "refetch": again, "task_rounds": len(rounds["records"])}
+
+    # checkpoint: published through the seed, fetched through peer 2,
+    # staged onto the card
+    src = daemon_checkpoint(tmp / "ckpt", gnn_sd)
+    nbytes = sum(p.stat().st_size for p in (tmp / "ckpt").iterdir())
+    t0 = time.perf_counter()
+    rc, text = cli_process("dragonfly2_tpu_torch.cli.dfmodel", ["--sock", socks["seed"], "--no-spawn",
+                                                                "publish", str(tmp / "ckpt")], env)
+    publish_s = time.perf_counter() - t0
+    if rc:
+        raise AssertionError(f"dfmodel publish exited {rc}")
+    manifest = tmp / "ckpt" / "dragonfly-checkpoint.json"
+    t0 = time.perf_counter()
+    rc, text = cli_process("dragonfly2_tpu_torch.cli.dfmodel", ["--sock", socks["peer2"], "--no-spawn",
+                                                                "fetch", str(manifest), "-O",
+                                                                str(tmp / "staged")], env)
+    fetch_s = time.perf_counter() - t0
+    if rc:
+        raise AssertionError(f"dfmodel fetch exited {rc}")
+    entries = json.loads(manifest.read_text())["files"]
+    fetched = [done_line(cluster.logs["peer2"], e["task_id"]) for e in entries]
+    if any(f["source_bytes"] or sum(f["by_parent"].values()) != f["pieces"] for f in fetched):
+        raise AssertionError(f"the checkpoint did not arrive peer to peer: {fetched}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = staging.stage_checkpoint_dir(tmp / "staged", device="cuda")
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    wrong = [k for k, a in src.items() if staged_bits(staged[k]).tobytes()
+             != (a.view(np.int16) if a.dtype == np.uint16 else a).tobytes()]
+    if wrong or len(staged) != len(src):
+        raise AssertionError(f"staged tensors differ from their source: {wrong[:4]} ({len(staged)} of {len(src)})")
+    gap = daemon_scorer_check(model, gnn_sd, staged, graph)
+    del staged
+    print(f"  checkpoint: {len(entries)} files, {nbytes / 2**30:.3f} GiB; publish through the seed "
+          f"{publish_s:.2f} s, fetch through peer 2 {fetch_s:.2f} s ({nbytes / fetch_s / 1e9:.2f} GB/s, host "
+          f"clock, dfmodel process to exit), every piece from parents; staged onto the card in {stage_s:.3f} s "
+          f"({nbytes / stage_s / 1e9:.2f} GB/s, closed by a synchronise), bit-equal; a GNNScorer from the "
+          f"staged weights against one from the in-memory weights: largest score gap {gap:.3g} over "
+          f"{ROUNDS} rounds")
+    if gap > RELOAD_SCORE_MAX_ABS:
+        raise AssertionError(f"the staged GNN scores {gap} away from the in-memory one")
+    numbers["checkpoint"] = {"files": len(entries), "bytes": nbytes, "publish_s": publish_s,
+                             "fetch_s": fetch_s, "fetch_gb_per_s": nbytes / fetch_s / 1e9,
+                             "stage_s": stage_s, "stage_gb_per_s": nbytes / stage_s / 1e9,
+                             "score_max_abs": gap}
+    numbers.update(host_cpu=host_cpu(), wall_s=time.perf_counter() - t_phase)
+    logs = {**{k: cluster.logs[k] for k in names}, "peer1": cluster.logs["peer1-restart"]}
+    ctx = {"tmp": tmp, "cluster": cluster, "env": env, "names": names, "ips": ips, "socks": socks, "logs": logs,
+           "saddr": saddr, "version": row["version"], "front": front}
+    return numbers, ctx
+
+
+REGISTRY_SCRIPT = '''\
+"""The image phase's OCI registry origin: /v2/, manifests by tag or digest and
+blobs by digest (aiohttp FileResponse, which serves Range) from one directory,
+on a plain listener and on a TLS one; it counts GETs and the bytes of each GET
+per listener and path.
+    python registry.py <dir> <plain port> <tls port> <cert> <key>
+prints REGISTRY_READY; GET /_stats on the plain listener for the counts."""
+import asyncio, collections, hashlib, os, signal, ssl, sys
+from aiohttp import web
+
+ROOT = sys.argv[1]
+STATS = {"plain": collections.defaultdict(lambda: {"gets": 0, "bytes": 0}),
+         "tls": collections.defaultdict(lambda: {"gets": 0, "bytes": 0})}
+
+
+def count(request, nbytes):
+    if request.method == "GET":
+        s = STATS["tls" if request.secure else "plain"][request.path]
+        s["gets"] += 1
+        s["bytes"] += nbytes
+
+
+async def ping(request):
+    return web.json_response({})
+
+
+async def manifest(request):
+    path = os.path.join(ROOT, "manifests", request.match_info["repo"].replace("/", "_"), request.match_info["ref"])
+    if not os.path.isfile(path):
+        raise web.HTTPNotFound()
+    with open(path, "rb") as f:
+        body = f.read()
+    count(request, len(body))
+    return web.Response(body=body, content_type="application/vnd.oci.image.manifest.v1+json",
+                        headers={"Docker-Content-Digest": "sha256:" + hashlib.sha256(body).hexdigest()})
+
+
+async def blob(request):
+    path = os.path.join(ROOT, "blobs", os.path.basename(request.match_info["digest"]))
+    if not os.path.isfile(path):
+        raise web.HTTPNotFound()
+    count(request, len(range(os.path.getsize(path))[request.http_range]))
+    return web.FileResponse(path, headers={"Docker-Content-Digest": request.match_info["digest"],
+                                           "Content-Type": "application/octet-stream"})
+
+
+async def stats(request):
+    return web.json_response(STATS)
+
+
+async def main():
+    app = web.Application()
+    app.router.add_get("/_stats", stats)
+    app.router.add_get("/v2/", ping)
+    app.router.add_get("/v2/{repo:.+}/manifests/{ref}", manifest)
+    app.router.add_get("/v2/{repo:.+}/blobs/{digest}", blob)
+    runner = web.AppRunner(app, access_log=None)
+    await runner.setup()
+    ctx = ssl.create_default_context(ssl.Purpose.CLIENT_AUTH)
+    ctx.load_cert_chain(sys.argv[4], sys.argv[5])
+    await web.TCPSite(runner, "127.0.0.1", int(sys.argv[2])).start()
+    await web.TCPSite(runner, "0.0.0.0", int(sys.argv[3]), ssl_context=ctx).start()
+    stop = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        asyncio.get_running_loop().add_signal_handler(sig, stop.set)
+    print("REGISTRY_READY", sys.argv[2], flush=True)
+    await stop.wait()
+    await runner.cleanup()
+
+
+asyncio.run(main())
+'''
+
+CLIENT_SCRIPT = '''\
+"""The image phase's clients, one run a process, each printing one JSON line:
+    client.py pull <base URL> <repo> <tag> <concurrency>
+        a docker-like pull through a registry mirror: /v2/, the manifest with
+        the OCI Accept header, then every blob by digest (the config and the
+        layers, <concurrency> at once), each hashed as it streams and held to
+        its digest; the bodies are discarded.
+    client.py connect <proxy host:port> <target host:port> <path> <CA file>
+        CONNECT through an HTTP proxy, then TLS as the target's host name
+        trusting only <CA file>, and GET <path>.
+    client.py sni <host:port> <server name> <path> <CA file>
+        TLS straight to an SNI proxy as <server name>, and GET <path>."""
+import asyncio, hashlib, json, ssl, sys, time
+import aiohttp
+
+ACCEPT = "application/vnd.oci.image.manifest.v1+json, application/vnd.docker.distribution.manifest.v2+json"
+
+
+async def fetch_blob(sess, url, digest, sem):
+    async with sem:
+        t0, h, n = time.perf_counter(), hashlib.sha256(), 0
+        async with sess.get(url) as r:
+            async for chunk in r.content.iter_chunked(1 << 20):
+                h.update(chunk)
+                n += len(chunk)
+            return {"digest": digest, "status": r.status, "via": r.headers.get("X-Dragonfly-Via"), "bytes": n,
+                    "sha_ok": "sha256:" + h.hexdigest() == digest, "s": time.perf_counter() - t0}
+
+
+async def pull(base, repo, tag, concurrency):
+    timeout = aiohttp.ClientTimeout(total=None, sock_read=300)
+    async with aiohttp.ClientSession(timeout=timeout) as sess:
+        async with sess.get(f"{base}/v2/") as r:
+            ping = r.status
+        async with sess.get(f"{base}/v2/{repo}/manifests/{tag}", headers={"Accept": ACCEPT}) as r:
+            body = await r.read()
+            man = {"status": r.status, "via": r.headers.get("X-Dragonfly-Via"),
+                   "content_type": r.headers.get("Content-Type"), "bytes": len(body)}
+        m = json.loads(body)
+        sem = asyncio.Semaphore(concurrency)
+        blobs = [m["config"]] + m["layers"]
+        got = await asyncio.gather(*(fetch_blob(sess, f"{base}/v2/{repo}/blobs/{b['digest']}", b["digest"], sem)
+                                     for b in blobs))
+    return {"ping": ping, "manifest": man, "blobs": got}
+
+
+async def tls_get(reader, writer, server_name, path, cafile):
+    t0 = time.perf_counter()
+    await writer.start_tls(ssl.create_default_context(cafile=cafile), server_hostname=server_name)
+    handshake = time.perf_counter() - t0
+    cert = writer.get_extra_info("peercert")
+    der = writer.get_extra_info("ssl_object").getpeercert(binary_form=True)
+    writer.write(f"GET {path} HTTP/1.1\\r\\nHost: {server_name}\\r\\nConnection: close\\r\\n\\r\\n".encode())
+    await writer.drain()
+    status = (await reader.readline()).decode().split()[1]
+    headers = {}
+    while (line := await reader.readline()) not in (b"\\r\\n", b""):
+        k, _, v = line.decode().partition(":")
+        headers[k.strip().lower()] = v.strip()
+    h, n = hashlib.sha256(), 0
+    while chunk := await reader.read(1 << 20):
+        h.update(chunk)
+        n += len(chunk)
+    writer.close()
+    return {"status": int(status), "via": headers.get("x-dragonfly-via"), "bytes": n, "sha256": "sha256:" + h.hexdigest(),
+            "subject": dict(x[0] for x in cert["subject"]).get("commonName"),
+            "issuer": dict(x[0] for x in cert["issuer"]).get("commonName"),
+            "cert_sha256": hashlib.sha256(der).hexdigest(), "handshake_s": handshake}
+
+
+async def connect(proxy, target, path, cafile):
+    host, port = proxy.rsplit(":", 1)
+    reader, writer = await asyncio.open_connection(host, int(port))
+    writer.write(f"CONNECT {target} HTTP/1.1\\r\\n\\r\\n".encode())
+    await writer.drain()
+    status = await reader.readline()
+    while (await reader.readline()) not in (b"\\r\\n", b""):
+        pass
+    if b" 200 " not in status:
+        return {"connect": status.decode().strip()}
+    return await tls_get(reader, writer, target.rsplit(":", 1)[0], path, cafile)
+
+
+async def sni(addr, server_name, path, cafile):
+    host, port = addr.rsplit(":", 1)
+    reader, writer = await asyncio.open_connection(host, int(port))
+    return await tls_get(reader, writer, server_name, path, cafile)
+
+
+mode, args = sys.argv[1], sys.argv[2:]
+if mode == "pull":
+    out = asyncio.run(pull(args[0], args[1], args[2], int(args[3])))
+else:
+    out = asyncio.run({"connect": connect, "sni": sni}[mode](*args))
+print(json.dumps(out))
+'''
+
+
+def image_front(tmp: pathlib.Path, ips: dict) -> dict:
+    """The image phase's flags on the daemon phase's daemons, chosen before
+    they boot: a proxy on each peer whose registry mirror is the registry
+    origin's plain listener (the origin starts in the image phase, on a port
+    picked now); HTTPS hijack of localhost on peers 2 and 3, with a hijack CA
+    made here by the port's ca.py; the SNI proxy on peer 3; the object
+    gateway on the seed and peers 1 and 2 over one fs root, standing in for a
+    shared bucket. A second CA signs the origin's TLS leaf (for localhost and
+    this host's name), which every daemon trusts through SSL_CERT_FILE, as a
+    daemon trusts a private HTTPS origin."""
+    t0 = time.perf_counter()
+    hijack = CertificateAuthority(tmp / "hijack-ca", common_name="chip-smoke-hijack-ca")
+    origin_ca = CertificateAuthority(tmp / "origin-ca", common_name="chip-smoke-origin-ca")
+    leaf = write_issued(origin_ca.issue("localhost", sans=["localhost", "127.0.0.1", socket.gethostname()],
+                                        client=False), tmp / "origin-tls")
+    cas_s = time.perf_counter() - t0
+    registry = free_port("127.0.0.1")
+    proxy = {k: free_port(ips[k]) for k in ("peer1", "peer2", "peer3")}
+    sni = free_port(ips["peer3"])
+    gateway = {k: free_port(ips[k]) for k in ("seed", "peer1", "peer2")}
+    args: dict[str, list[str]] = {k: [] for k in ips}
+    for k, port in proxy.items():
+        # the mirror takes origin-form requests; the rule sends an intercepted
+        # HTTPS registry's blobs peer to peer (Dragonfly's usual proxy rule)
+        args[k] += ["--proxy-port", str(port), "--registry-mirror", f"http://127.0.0.1:{registry}",
+                    "--proxy-rule", "blobs/sha256.*"]
+    for k in ("peer2", "peer3"):
+        args[k] += ["--hijack-ca-dir", str(tmp / "hijack-ca"), "--hijack-host", "^localhost$"]
+    args["peer3"] += ["--sni-proxy-port", str(sni)]
+    for k, port in gateway.items():
+        args[k] += ["--object-storage-port", str(port), "--object-storage-root", str(tmp / "objects")]
+    return {"args": args, "env": {"SSL_CERT_FILE": leaf["ca"]}, "registry": registry, "proxy": proxy, "sni": sni,
+            "gateway": gateway, "leaf": leaf, "hijack_ca": str(tmp / "hijack-ca" / "ca.pem"),
+            "ca_backend": hijack.backend, "cas_s": cas_s}
+
+
+def write_image(root: pathlib.Path) -> dict:
+    """The image under ``root``: its layers of seeded bytes (one numpy stream,
+    in IMAGE_LAYER_MIB order), its config and OCI manifest (by tag and by
+    digest) and a one-layer oras artifact manifest holding IMAGE_ORAS_LAYER."""
+    (root / "blobs").mkdir(parents=True)
+    rng, layers = np.random.default_rng(IMAGE_SEED), []
+    for mib in IMAGE_LAYER_MIB:
+        h, part = hashlib.sha256(), root / "blobs" / "partial"
+        with open(part, "wb") as f:
+            for off in range(0, mib << 20, 64 << 20):
+                chunk = rng.integers(0, 256, min(64 << 20, (mib << 20) - off), dtype=np.uint8).tobytes()
+                h.update(chunk)
+                f.write(chunk)
+        digest = "sha256:" + h.hexdigest()
+        part.rename(root / "blobs" / digest)
+        layers.append({"mediaType": "application/vnd.oci.image.layer.v1.tar", "digest": digest, "size": mib << 20})
+
+    def put(data: bytes, media: str) -> dict:
+        digest = "sha256:" + hashlib.sha256(data).hexdigest()
+        (root / "blobs" / digest).write_bytes(data)
+        return {"mediaType": media, "digest": digest, "size": len(data)}
+
+    config = put(json.dumps({"architecture": "amd64", "os": "linux", "rootfs": {
+        "type": "layers", "diff_ids": [lay["digest"] for lay in layers]}}).encode(),
+        "application/vnd.oci.image.config.v1+json")
+    manifests = {}
+    for repo, tag, cfg, lays in ((IMAGE_REPO, IMAGE_TAG, config, layers),
+                                 (ORAS_REPO, ORAS_TAG, put(b"{}", "application/vnd.oci.empty.v1+json"),
+                                  [layers[IMAGE_ORAS_LAYER]])):
+        body = json.dumps({"schemaVersion": 2, "mediaType": OCI_MANIFEST, "config": cfg, "layers": lays}).encode()
+        d = root / "manifests" / repo.replace("/", "_")
+        d.mkdir(parents=True)
+        (d / tag).write_bytes(body)
+        (d / ("sha256:" + hashlib.sha256(body).hexdigest())).write_bytes(body)
+        manifests[repo] = body
+    return {"layers": layers, "config": config, "manifests": manifests}
+
+
+def client_run(ctx: dict, args: list[str]) -> tuple[str, float]:
+    """One client process of the image phase (CLIENT_SCRIPT), one of the
+    cluster's processes (so that the phase's end stops it, whatever happens),
+    and its start on the host clock."""
+    cluster = ctx["cluster"]
+    name = f"client-{sum(n.startswith('client-') for n in cluster.logs)}"
+    cluster.spawn(name, [str(ctx["tmp"] / "client.py"), *args])
+    return name, time.perf_counter()
+
+
+def client_wait(ctx: dict, run: tuple[str, float], deadline: float) -> dict:
+    """A client process's JSON line, with its seconds to exit."""
+    (name, t0), cluster = run, ctx["cluster"]
+    p = cluster.procs[name]
     try:
-        deadline = time.monotonic() + DAEMON_BOOT_S
-        (tmp / "origin.py").write_text(ORIGIN_SCRIPT)
-        (tmp / "www").mkdir()
-        cluster.spawn("origin", [str(tmp / "origin.py"), str(tmp / "www")])
-        cluster.spawn("manager", ["-m", "dragonfly2_tpu_torch.manager.server", "--host", "127.0.0.1", "--port", "0",
-                                  "--db", str(tmp / "manager.db")])
-        t0 = time.perf_counter()
-        want = write_seeded_file(tmp / "www" / "blob.bin", DAEMON_FILE_BYTES, DAEMON_FILE_SEED)
-        numbers["origin_file_s"] = time.perf_counter() - t0
-        oport = int(cluster.ready("origin", "ORIGIN_READY", deadline))
-        maddr = cluster.ready("manager", "manager ready", deadline).removeprefix("rpc=")
-        cluster.spawn("scheduler", ["-m", "dragonfly2_tpu_torch.scheduler.server", "--host", "127.0.0.1",
-                                    "--port", "0", "--evaluator", "ml", "--manager", maddr, "--hostname", "df-sched",
-                                    "--keepalive-interval", "1", "--model-watch-interval", "1"],
-                      {"DRAGONFLY_NATIVE_SCORER": "0", "DRAGONFLY_DECISION_SAMPLE": "1"})
-        saddr = cluster.ready("scheduler", "SCHEDULER_READY", deadline)
-        for k in names:
-            cluster.spawn(k, ["-m", "dragonfly2_tpu_torch.daemon.server", "--scheduler", saddr,
-                              "--storage", str(tmp / k), "--sock", socks[k], "--ip", ips[k],
-                              "--hostname", names[k], "--upload-port", str(ports[k]),
-                              "--announce-interval", "2", *(["--seed"] if k == "seed" else [])])
-        t0 = time.perf_counter()
-        row = asyncio.run(daemon_train(tmp, maddr, list(host_ids.values())))
-        numbers["train_to_published_s"] = time.perf_counter() - t0
-        for k in names:
-            if cluster.ready(k, "DAEMON_READY", deadline) != socks[k]:
-                raise AssertionError(f"{k} is not ready on {socks[k]}")
-        t0 = time.perf_counter()
-        frame = asyncio.run(wait_serving(maddr, "df-sched", time.monotonic() + DAEMON_ATTACH_S))
-        numbers["published_to_torch_frame_s"] = time.perf_counter() - t0
-        if "via engine torch on cuda" not in cluster.logs["scheduler"].read_text():
-            raise AssertionError("the scheduler does not serve the model on the card")
-        model, gnn_sd = artifacts.load_gnn(row["artifact"])
-        graph, index = artifacts.load_graph(row["artifact"])
-        missing = [h for h in host_ids.values() if h not in index]
-        if missing or len(index) != NUM_HOSTS:
-            raise AssertionError(f"the model's graph: {len(index)} hosts, missing the daemons {missing}")
-        print(f"  origin, manager, scheduler and 4 daemons up; GNN {row['version']} trained on the card from "
-              f"{2 * DAEMON_RECORDS} records over {NUM_HOSTS} hosts (the daemons' ids among them) and published in "
-              f"{numbers['train_to_published_s']:.1f} s; the scheduler's frame reads torch "
-              f"{numbers['published_to_torch_frame_s']:.1f} s later (serving {frame.get('serving_mode')!r})")
+        out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{name} ({' '.join(p.args[2:])}) ran past its deadline") from None
+    s = time.perf_counter() - t0
+    cluster.stop(name)
+    if p.returncode:
+        raise AssertionError(f"{name} exited {p.returncode}: {cluster.logs[name].read_text()[-2000:]}")
+    return {**json.loads(out.strip().splitlines()[-1]), "s": s}
 
-        # downloads: peer 1, then peers 2 and 3 at once
-        url = f"http://127.0.0.1:{oport}/blob.bin"
-        task_id = idgen.task_id(url)
-        outs = {k: tmp / f"{k}.out" for k in ("peer1", "peer2", "peer3")}
-        runs: dict[str, dict] = {}
-        dl_deadline = time.monotonic() + DAEMON_DOWNLOAD_S
-        t0 = time.perf_counter()
-        dfget_wait(dfget_run(cluster, url, outs["peer1"], socks["peer1"]), dl_deadline)
-        runs["peer1"] = {"s": time.perf_counter() - t0}
-        after_first = origin_stats(oport)
-        t0 = time.perf_counter()
-        ps = {k: dfget_run(cluster, url, outs[k], socks[k]) for k in ("peer2", "peer3")}
-        for k, p in ps.items():
-            dfget_wait(p, dl_deadline)
-            runs[k] = {"s": time.perf_counter() - t0}
-        after_all = origin_stats(oport)
-        with concurrent.futures.ThreadPoolExecutor(3) as pool:
-            shas = dict(zip(outs, pool.map(file_sha256, outs.values())))
-        for k, run in runs.items():
-            run.update(done_line(cluster.logs[k], task_id), mib_per_s=DAEMON_FILE_BYTES / run["s"] / 2**20)
-            run["by_parent"] = parent_names(run["by_parent"], names)
-            print(f"  dfget through {k}: {run['s']:.2f} s, {run['mib_per_s']:.1f} MiB/s (host clock, "
-                  f"dfget process to exit), pieces by parent {run['by_parent']}, {run['source_bytes']} bytes "
-                  f"from the source")
-        if any(s != want for s in shas.values()):
-            raise AssertionError(f"sha256 of the outputs {shas} != the origin file's {want}")
-        if after_all["bytes"] != DAEMON_FILE_BYTES or after_all["gets"] != after_first["gets"]:
-            raise AssertionError(f"the origin served {after_all} (after peer 1: {after_first}), "
-                                 f"not the file's {DAEMON_FILE_BYTES} bytes once")
-        for k in ("peer2", "peer3"):
-            total = runs[k]["pieces"]
-            if runs[k]["source_bytes"] or sum(runs[k]["by_parent"].values()) != total or not total:
-                raise AssertionError(f"{k} did not take every piece from parents: {runs[k]}")
-        rounds = asyncio.run(task_rounds(saddr, task_id))
+
+def registry_stats(port: int) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/_stats", timeout=10) as r:
+        return json.loads(r.read())
+
+
+def served(stats: dict, listener: str, path: str) -> dict:
+    return stats[listener].get(path, {"gets": 0, "bytes": 0})
+
+
+def blob_tasks(ctx: dict, base: str, repo: str, blobs: list[dict], names: tuple, leg: str) -> dict:
+    """Each blob's task on each named peer: its ``task done`` line (pieces by
+    parent daemon, bytes from the source), its pieces by the size the
+    scheduler scopes, and its scheduling rounds; raises unless every round
+    scored torch on the published version with no fallback, and every
+    multi-piece blob came from parents on every peer. A one-piece blob
+    (the scheduler's small scope) is named and counted whatever its source."""
+    out, one_piece = {}, []
+    for b in blobs:
+        url = f"{base}/v2/{repo}/blobs/{b['digest']}"
+        task_id = idgen.task_id(url, digest=b["digest"])
+        rounds = asyncio.run(task_rounds(ctx["saddr"], task_id))
         modes = [(r["serving_mode"], r["model_version"]) for r in rounds["records"]]
-        fb = rounds["fallbacks"]
-        print(f"  the scheduler's rounds for the task: {len(modes)} ({dict(collections.Counter(modes))}); "
-              f"ML_BASE_FALLBACK_TOTAL {fb}; origin {after_all}")
-        if not modes or any(m != ("torch", row["version"]) for m in modes) or any(fb.values()):
-            raise AssertionError(f"rounds {modes}, fallbacks {fb}: not every round scored torch on the card")
-        for p in outs.values():
-            p.unlink()
-        numbers.update(downloads=runs, origin=after_all, task_rounds=len(modes), fallbacks=fb)
+        if any(m != ("torch", ctx["version"]) for m in modes) or any(rounds["fallbacks"].values()):
+            raise AssertionError(f"{leg}: blob {b['digest'][:19]}: rounds {modes}, fallbacks {rounds['fallbacks']}")
+        pieces = piece_count(b["size"], compute_piece_size(b["size"]))
+        per_peer = {}
+        for k in names:
+            done = done_line(ctx["logs"][k], task_id)
+            done["by_parent"] = parent_names(done["by_parent"], ctx["names"])
+            per_peer[k] = done
+            if pieces > 1 and (done["source_bytes"] or sum(done["by_parent"].values()) != done["pieces"]):
+                raise AssertionError(f"{leg}: {k} took blob {b['digest'][:19]} ({pieces} pieces) from the source: "
+                                     f"{done}")
+        if pieces == 1:
+            one_piece.append(b["digest"])
+        out[b["digest"]] = {"size": b["size"], "pieces": pieces, "rounds": len(modes), "peers": per_peer}
+    return {"blobs": out, "one_piece": one_piece, "rounds": sum(v["rounds"] for v in out.values()),
+            "fallbacks": rounds["fallbacks"]}
 
-        # restart: kill -9 peer 1, restart it on the same storage, then drop
-        # the task on peer 3 and fetch it again through peer 3
-        cluster.stop("peer1", kill=True)
-        pathlib.Path(socks["peer1"]).unlink(missing_ok=True)
-        t0 = time.perf_counter()
-        cluster.spawn("peer1-restart", ["-m", "dragonfly2_tpu_torch.daemon.server", "--scheduler", saddr,
-                                        "--storage", str(tmp / "peer1"), "--sock", socks["peer1"], "--ip",
-                                        ips["peer1"], "--hostname", names["peer1"], "--upload-port",
-                                        str(ports["peer1"]), "--announce-interval", "2"])
-        cluster.ready("peer1-restart", "DAEMON_READY", time.monotonic() + DAEMON_BOOT_S)
-        restart_s = time.perf_counter() - t0
-        recovered = [ln for ln in cluster.logs["peer1-restart"].read_text().splitlines()
-                     if f"task {task_id[:12]}: recovered" in ln]
-        if not recovered:
-            raise AssertionError("the restarted daemon's log names no recovered piece of the task")
-        rc, text = cli_process("dragonfly2_tpu_torch.cli.dfcache", ["--sock", socks["peer3"], "--no-spawn", "rm",
-                                                                    task_id], env)
-        if rc:
-            raise AssertionError(f"dfcache rm exited {rc}")
-        t0 = time.perf_counter()
-        dfget_wait(dfget_run(cluster, url, outs["peer3"], socks["peer3"]), dl_deadline)
-        again = {"s": time.perf_counter() - t0, **done_line(cluster.logs["peer3"], task_id)}
-        again["by_parent"] = parent_names(again["by_parent"], names)
-        after_restart = origin_stats(oport)
-        sha = file_sha256(outs["peer3"])
-        outs["peer3"].unlink()
-        print(f"  peer 1 killed and restarted in {restart_s:.2f} s: {recovered[-1].split('daemon.engine ')[-1]}; the task "
-              f"removed from peer 3 and fetched again in {again['s']:.2f} s, pieces by parent "
-              f"{again['by_parent']}; origin {after_restart}")
-        if sha != want or after_restart["gets"] != after_all["gets"] or again["source_bytes"]:
-            raise AssertionError(f"after the restart: sha256 {sha}, origin {after_restart}, {again}")
-        rounds = asyncio.run(task_rounds(saddr, task_id))
-        fb = rounds["fallbacks"]
-        if any(r["serving_mode"] != "torch" for r in rounds["records"]) or any(fb.values()):
-            raise AssertionError(f"the restart's rounds fell back: {fb}")
-        numbers["restart"] = {"restart_s": restart_s, "refetch": again, "task_rounds": len(rounds["records"])}
 
-        # checkpoint: published through the seed, fetched through peer 2,
-        # staged onto the card
-        src = daemon_checkpoint(tmp / "ckpt", gnn_sd)
-        nbytes = sum(p.stat().st_size for p in (tmp / "ckpt").iterdir())
+def print_leg(name: str, runs: dict, tasks: dict, origin: dict) -> None:
+    for k, r in runs.items():
+        print(f"  {name} through {k}: {r['s']:.2f} s, {r['bytes'] / r['s'] / 2**20:.1f} MiB/s (host clock, the "
+              f"client process to its end)")
+    by_parent: dict = {}
+    for t in tasks["blobs"].values():
+        for k, done in t["peers"].items():
+            for parent, n in done["by_parent"].items():
+                by_parent.setdefault(k, {}).setdefault(parent, 0)
+                by_parent[k][parent] += n
+    one_piece = {d[:19]: {k: (done["by_parent"], done["source_bytes"]) for k, done in tasks["blobs"][d]["peers"].items()}
+                 for d in tasks["one_piece"]}
+    print(f"    pieces by parent {by_parent}; rounds {tasks['rounds']}, all torch; fallbacks {tasks['fallbacks']}; "
+          f"one-piece blobs (the small scope; by parent, bytes from the source) {one_piece}; origin {origin}")
+
+
+def image_phase(ctx: dict) -> dict:
+    """The daemon's image-acceleration front and its object and registry
+    origins on the daemon phase's cluster (see the module docstring)."""
+    t_phase = time.perf_counter()
+    tmp, cluster, front, ips = ctx["tmp"], ctx["cluster"], ctx["front"], ctx["ips"]
+    host = socket.gethostname()
+    addrs = {a[4][0] for a in socket.getaddrinfo(host, IMAGE_TLS_PORT, proto=socket.IPPROTO_TCP)}
+    if host == "localhost" or not addrs:
+        raise AssertionError(f"this host's name {host!r} does not resolve apart from localhost: the tunnel legs "
+                             "need a second name for the origin")
+    numbers: dict = {"ca_backend": front["ca_backend"], "cas_s": front["cas_s"], "tunnel_name": host}
+    deadline = time.monotonic() + DAEMON_DOWNLOAD_S
+
+    # origins: the image written, the registry on its plain port and on 443
+    t0 = time.perf_counter()
+    image = write_image(tmp / "registry")
+    numbers["image_write_s"] = time.perf_counter() - t0
+    (tmp / "registry.py").write_text(REGISTRY_SCRIPT)
+    (tmp / "client.py").write_text(CLIENT_SCRIPT)
+    cluster.spawn("registry", [str(tmp / "registry.py"), str(tmp / "registry"), str(front["registry"]),
+                               str(IMAGE_TLS_PORT), front["leaf"]["cert"], front["leaf"]["key"]])
+    cluster.ready("registry", "REGISTRY_READY", time.monotonic() + DAEMON_BOOT_S)
+    forger = CertForger(CertificateAuthority(tmp / "hijack-ca"))
+    t0 = time.perf_counter()
+    forger.context_for("localhost")
+    numbers["forge_first_leaf_s"] = time.perf_counter() - t0
+    forger.close()
+    layers, total = image["layers"], sum(lay["size"] for lay in image["layers"])
+    print(f"  image {IMAGE_REPO}:{IMAGE_TAG}: {len(layers)} layers of {list(IMAGE_LAYER_MIB)} MiB "
+          f"({total / 2**30:.3f} GiB) written in {numbers['image_write_s']:.2f} s; CAs by the {front['ca_backend']} "
+          f"backend in {front['cas_s']:.3f} s; first leaf forged in {numbers['forge_first_leaf_s'] * 1e3:.1f} ms "
+          f"(this process, the daemons' backend); tunnel name {host} -> {sorted(addrs)}")
+
+    # 1. the mirror pull: peer 1, then peers 2 and 3 at once
+    mirror = {k: f"http://{ips[k]}:{front['proxy'][k]}" for k in ("peer1", "peer2", "peer3")}
+    pull = {k: ["pull", url, IMAGE_REPO, IMAGE_TAG, str(IMAGE_PULL_CONCURRENCY)] for k, url in mirror.items()}
+    runs = {"peer1": client_wait(ctx, client_run(ctx, pull["peer1"]), deadline)}
+    both = {k: client_run(ctx, pull[k]) for k in ("peer2", "peer3")}
+    runs.update({k: client_wait(ctx, r, deadline) for k, r in both.items()})
+    stats = registry_stats(front["registry"])
+    blobs = [image["config"], *layers]
+    for k, r in runs.items():
+        r["bytes"] = sum(b["bytes"] for b in r["blobs"])
+        bad = [b for b in r["blobs"] if b["status"] != 200 or not b["sha_ok"] or b["via"] != "p2p"]
+        if r["ping"] != 200 or r["manifest"]["status"] != 200 or r["manifest"]["via"] is not None or bad \
+                or len(r["blobs"]) != len(blobs):
+            raise AssertionError(f"the pull through {k}'s mirror: {r}")
+    once = {lay["digest"]: served(stats, "plain", f"/v2/{IMAGE_REPO}/blobs/{lay['digest']}") for lay in layers}
+    if any(once[lay["digest"]]["bytes"] != lay["size"] for lay in layers):
+        raise AssertionError(f"the origin did not serve each layer's bytes once: {once}")
+    tasks = blob_tasks(ctx, f"http://127.0.0.1:{front['registry']}", IMAGE_REPO, blobs, tuple(runs), "mirror")
+    origin = {"gets": sum(v["gets"] for v in stats["plain"].values()),
+              "bytes": sum(v["bytes"] for v in stats["plain"].values())}
+    print_leg("mirror pull", runs, tasks, origin)
+    numbers["mirror"] = {"runs": {k: {"s": r["s"], "bytes": r["bytes"], "mib_per_s": r["bytes"] / r["s"] / 2**20}
+                                  for k, r in runs.items()},
+                         "tasks": tasks, "origin": origin, "layer_gets": {d[:19]: v["gets"] for d, v in once.items()}}
+
+    # 2. HTTPS hijack through peer 2's proxy, and a tunnel for another name
+    hijacked = layers[IMAGE_HIJACK_LAYER]
+    path = f"/v2/{IMAGE_REPO}/blobs/{hijacked['digest']}"
+    proxy2 = f"{ips['peer2']}:{front['proxy']['peer2']}"
+    hj = client_wait(ctx, client_run(ctx, ["connect", proxy2, f"localhost:{IMAGE_TLS_PORT}", path, front["hijack_ca"]]),
+                     deadline)
+    tun = client_wait(ctx, client_run(ctx, ["connect", proxy2, f"{host}:{IMAGE_TLS_PORT}", "/v2/", front["leaf"]["ca"]]),
+                      deadline)
+    origin_leaf = hashlib.sha256(ssl.PEM_cert_to_DER_cert(pathlib.Path(front["leaf"]["cert"]).read_text())).hexdigest()
+    if (hj.get("status"), hj.get("via"), hj.get("sha256"), hj.get("issuer")) != (
+            200, "p2p", hijacked["digest"], "chip-smoke-hijack-ca") or hj["subject"] != "localhost":
+        raise AssertionError(f"the hijacked CONNECT: {hj}")
+    if tun.get("status") != 200 or tun.get("via") is not None or tun.get("cert_sha256") != origin_leaf:
+        raise AssertionError(f"the tunnelled CONNECT did not reach the origin's own certificate: {tun}")
+    stats = registry_stats(front["registry"])
+    tls_served = served(stats, "tls", path)
+    if tls_served["bytes"] != hijacked["size"]:
+        raise AssertionError(f"the TLS origin served the hijacked layer as {tls_served}")
+    hj["bytes"] = hijacked["size"]
+    tasks = blob_tasks(ctx, "https://localhost", IMAGE_REPO, [hijacked], ("peer2",), "hijack")
+    print_leg("HTTPS hijack (CONNECT)", {"peer2": hj}, tasks, {"tls": tls_served})
+    print(f"    the hijacked client saw a leaf for {hj['subject']} issued by {hj['issuer']} (handshake "
+          f"{hj['handshake_s'] * 1e3:.1f} ms, the daemon's first forge included); CONNECT {host}:{IMAGE_TLS_PORT} "
+          f"tunnelled to the origin's own leaf (issuer {tun['issuer']}, handshake {tun['handshake_s'] * 1e3:.1f} ms)")
+    # where the hijacked pull's time goes: the layer straight from the origin
+    # over TLS (no daemon), then through peer 2's hijack again (its storage)
+    direct = client_wait(ctx, client_run(ctx, ["sni", f"127.0.0.1:{IMAGE_TLS_PORT}", "localhost", path,
+                                           front["leaf"]["ca"]]), deadline)
+    again = client_wait(ctx, client_run(ctx, ["connect", proxy2, f"localhost:{IMAGE_TLS_PORT}", path,
+                                          front["hijack_ca"]]), deadline)
+    if direct.get("sha256") != hijacked["digest"] or (again.get("sha256"), again.get("via")) != (
+            hijacked["digest"], "p2p"):
+        raise AssertionError(f"the hijacked layer straight from the origin {direct} or again through peer 2 {again}")
+    print(f"    the same layer straight from the origin over TLS: {direct['s']:.2f} s, "
+          f"{hijacked['size'] / direct['s'] / 2**20:.1f} MiB/s; again through peer 2's hijack (its storage): "
+          f"{again['s']:.2f} s, {hijacked['size'] / again['s'] / 2**20:.1f} MiB/s")
+    numbers["hijack"] = {"s": hj["s"], "mib_per_s": hj["bytes"] / hj["s"] / 2**20, "handshake_s": hj["handshake_s"],
+                         "tunnel_handshake_s": tun["handshake_s"], "tasks": tasks, "origin_tls": tls_served,
+                         "origin_direct_mib_per_s": hijacked["size"] / direct["s"] / 2**20,
+                         "again_from_storage_mib_per_s": hijacked["size"] / again["s"] / 2**20}
+
+    # 3. the SNI proxy on peer 3: a hijacked name over P2P, another tunnelled
+    sni_layer = layers[IMAGE_SNI_LAYER]
+    path = f"/v2/{IMAGE_REPO}/blobs/{sni_layer['digest']}"
+    sni_addr = f"{ips['peer3']}:{front['sni']}"
+    sh = client_wait(ctx, client_run(ctx, ["sni", sni_addr, "localhost", path, front["hijack_ca"]]), deadline)
+    st = client_wait(ctx, client_run(ctx, ["sni", sni_addr, host, "/v2/", front["leaf"]["ca"]]), deadline)
+    if (sh.get("status"), sh.get("via"), sh.get("sha256"), sh.get("issuer")) != (
+            200, "p2p", sni_layer["digest"], "chip-smoke-hijack-ca"):
+        raise AssertionError(f"the SNI hijack: {sh}")
+    if st.get("status") != 200 or st.get("cert_sha256") != origin_leaf:
+        raise AssertionError(f"the SNI tunnel did not reach the origin's own certificate: {st}")
+    stats = registry_stats(front["registry"])
+    sni_served = served(stats, "tls", path)
+    if sni_served["bytes"] != sni_layer["size"]:
+        raise AssertionError(f"the TLS origin served the SNI layer as {sni_served}")
+    sh["bytes"] = sni_layer["size"]
+    tasks = blob_tasks(ctx, "https://localhost", IMAGE_REPO, [sni_layer], ("peer3",), "sni")
+    print_leg("SNI proxy", {"peer3": sh}, tasks, {"tls": sni_served})
+    print(f"    the SNI hijack's leaf issued by {sh['issuer']} (handshake {sh['handshake_s'] * 1e3:.1f} ms); "
+          f"{host} tunnelled to the origin's own leaf (issuer {st['issuer']})")
+    numbers["sni"] = {"s": sh["s"], "mib_per_s": sh["bytes"] / sh["s"] / 2**20, "handshake_s": sh["handshake_s"],
+                      "tasks": tasks, "origin_tls": sni_served}
+
+    # 4. the object gateway with dfstore over the shared fs root
+    obj = tmp / "object.bin"
+    want = write_seeded_file(obj, GATEWAY_OBJECT_BYTES, GATEWAY_SEED)
+    gw = {k: f"http://{ips[k]}:{port}" for k, port in front["gateway"].items()}
+    store = "dragonfly2_tpu_torch.cli.dfstore"
+    rc, _ = cli_process(store, ["--endpoint", gw["seed"], "make-bucket", "df://models"], ctx["env"])
+    t0 = time.perf_counter()
+    rc2, out = cli_process(store, ["--endpoint", gw["seed"], "put", str(obj), "df://models/ckpt/object.bin"],
+                           ctx["env"])
+    put_s = time.perf_counter() - t0
+    if rc or rc2 or json.loads(out)["digest"] != "sha256:" + want:
+        raise AssertionError(f"dfstore make-bucket / put through the seed: {rc}, {rc2}, {out}")
+    gets, stored = {}, tmp / "objects" / "models" / "ckpt" / "object.bin"
+    task_id = idgen.task_id(stored.resolve().as_uri(), digest="sha256:" + want)
+    for k in ("peer1", "peer2"):
         t0 = time.perf_counter()
-        rc, text = cli_process("dragonfly2_tpu_torch.cli.dfmodel", ["--sock", socks["seed"], "--no-spawn",
-                                                                    "publish", str(tmp / "ckpt")], env)
-        publish_s = time.perf_counter() - t0
-        if rc:
-            raise AssertionError(f"dfmodel publish exited {rc}")
-        manifest = tmp / "ckpt" / "dragonfly-checkpoint.json"
-        t0 = time.perf_counter()
-        rc, text = cli_process("dragonfly2_tpu_torch.cli.dfmodel", ["--sock", socks["peer2"], "--no-spawn",
-                                                                    "fetch", str(manifest), "-O",
-                                                                    str(tmp / "staged")], env)
-        fetch_s = time.perf_counter() - t0
-        if rc:
-            raise AssertionError(f"dfmodel fetch exited {rc}")
-        entries = json.loads(manifest.read_text())["files"]
-        fetched = [done_line(cluster.logs["peer2"], e["task_id"]) for e in entries]
-        if any(f["source_bytes"] or sum(f["by_parent"].values()) != f["pieces"] for f in fetched):
-            raise AssertionError(f"the checkpoint did not arrive peer to peer: {fetched}")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        staged = staging.stage_checkpoint_dir(tmp / "staged", device="cuda")
-        torch.cuda.synchronize()
-        stage_s = time.perf_counter() - t0
-        wrong = [k for k, a in src.items() if staged_bits(staged[k]).tobytes()
-                 != (a.view(np.int16) if a.dtype == np.uint16 else a).tobytes()]
-        if wrong or len(staged) != len(src):
-            raise AssertionError(f"staged tensors differ from their source: {wrong[:4]} ({len(staged)} of {len(src)})")
-        gap = daemon_scorer_check(model, gnn_sd, staged, graph)
-        del staged
-        print(f"  checkpoint: {len(entries)} files, {nbytes / 2**30:.3f} GiB; publish through the seed "
-              f"{publish_s:.2f} s, fetch through peer 2 {fetch_s:.2f} s ({nbytes / fetch_s / 1e9:.2f} GB/s, host "
-              f"clock, dfmodel process to exit), every piece from parents; staged onto the card in {stage_s:.3f} s "
-              f"({nbytes / stage_s / 1e9:.2f} GB/s, closed by a synchronise), bit-equal; a GNNScorer from the "
-              f"staged weights against one from the in-memory weights: largest score gap {gap:.3g} over "
-              f"{ROUNDS} rounds")
-        if gap > RELOAD_SCORE_MAX_ABS:
-            raise AssertionError(f"the staged GNN scores {gap} away from the in-memory one")
-        numbers["checkpoint"] = {"files": len(entries), "bytes": nbytes, "publish_s": publish_s,
-                                 "fetch_s": fetch_s, "fetch_gb_per_s": nbytes / fetch_s / 1e9,
-                                 "stage_s": stage_s, "stage_gb_per_s": nbytes / stage_s / 1e9,
-                                 "score_max_abs": gap}
-    finally:
-        cluster.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        rc, out = cli_process(store, ["--endpoint", gw[k], "get", "df://models/ckpt/object.bin",
+                                      str(tmp / f"object-{k}.bin")], ctx["env"])
+        gets[k] = {"s": time.perf_counter() - t0, "bytes": GATEWAY_OBJECT_BYTES,
+                   "sha_ok": not rc and file_sha256(tmp / f"object-{k}.bin") == want}
+        done = done_line(ctx["logs"][k], task_id)
+        gets[k]["by_parent"] = parent_names(done["by_parent"], ctx["names"])
+        if not gets[k]["sha_ok"] or done["source_bytes"] or sum(done["by_parent"].values()) != done["pieces"]:
+            raise AssertionError(f"dfstore get through {k}: {gets[k]}, {done}")
+        (tmp / f"object-{k}.bin").unlink()
+    rounds = asyncio.run(task_rounds(ctx["saddr"], task_id))
+    if any(r["serving_mode"] != "torch" for r in rounds["records"]) or any(rounds["fallbacks"].values()):
+        raise AssertionError(f"the gateway object's rounds: {rounds['records']}, {rounds['fallbacks']}")
+    rc_stat, stat_out = cli_process(store, ["--endpoint", gw["peer1"], "stat", "df://models/ckpt/object.bin"],
+                                    ctx["env"])
+    rc_ls, ls_out = cli_process(store, ["--endpoint", gw["peer2"], "ls", "df://models/ckpt/"], ctx["env"])
+    rc_rm, rm_out = cli_process(store, ["--endpoint", gw["seed"], "rm", "df://models/ckpt/object.bin"], ctx["env"])
+    rc_gone = subprocess.run([sys.executable, "-m", store, "--endpoint", gw["peer1"], "stat",
+                              "df://models/ckpt/object.bin"], cwd=REPO, env=ctx["env"], capture_output=True,
+                             timeout=CLI_DEADLINE_S).returncode  # removed: exits 1
+    if rc_stat or json.loads(stat_out)["content_length"] != GATEWAY_OBJECT_BYTES or rc_ls \
+            or "ckpt/object.bin" not in ls_out or rc_rm or rm_out.strip() != "deleted" or rc_gone != 1:
+        raise AssertionError(f"dfstore stat/ls/rm: {rc_stat} {stat_out!r} {rc_ls} {ls_out!r} {rc_rm} {rm_out!r} "
+                             f"{rc_gone}")
+    print(f"  dfstore put of {GATEWAY_OBJECT_BYTES >> 20} MiB through the seed's gateway in {put_s:.2f} s "
+          f"({GATEWAY_OBJECT_BYTES / put_s / 2**20:.1f} MiB/s, the dfstore process to its end)")
+    for k, g in gets.items():
+        print(f"  dfstore get through {k}: {g['s']:.2f} s, {g['bytes'] / g['s'] / 2**20:.1f} MiB/s, pieces by parent "
+              f"{g['by_parent']}")
+    print(f"    rounds {len(rounds['records'])}, all torch; fallbacks {rounds['fallbacks']}; stat, ls, rm: ok")
+    numbers["gateway"] = {"put_s": put_s, "gets": gets, "rounds": len(rounds["records"])}
+    obj.unlink()
+
+    # 5. oras:// through peer 3
+    art = layers[IMAGE_ORAS_LAYER]
+    url = f"oras://localhost/{ORAS_REPO}:{ORAS_TAG}"
+    before = registry_stats(front["registry"])
+    t0 = time.perf_counter()
+    dfget_wait(dfget_run(cluster, url, tmp / "oras.out", ctx["socks"]["peer3"]), deadline)
+    oras = {"s": time.perf_counter() - t0, "bytes": art["size"]}
+    sha = "sha256:" + file_sha256(tmp / "oras.out")
+    (tmp / "oras.out").unlink()
+    done = done_line(ctx["logs"]["peer3"], idgen.task_id(url))
+    oras["by_parent"] = parent_names(done["by_parent"], ctx["names"])
+    after = registry_stats(front["registry"])
+    layer_path = f"/v2/{ORAS_REPO}/blobs/{art['digest']}"
+    oras_served = {k: served(after, "tls", layer_path)[k] - served(before, "tls", layer_path)[k]
+                   for k in ("gets", "bytes")}
+    if sha != art["digest"] or done["source_bytes"] or sum(done["by_parent"].values()) != done["pieces"] \
+            or oras_served["bytes"] != art["size"]:
+        raise AssertionError(f"dfget {url}: sha {sha} (want {art['digest']}), {done}, origin {oras_served}")
+    rounds = asyncio.run(task_rounds(ctx["saddr"], idgen.task_id(url)))
+    if any(r["serving_mode"] != "torch" for r in rounds["records"]) or any(rounds["fallbacks"].values()):
+        raise AssertionError(f"the oras task's rounds: {rounds['records']}, {rounds['fallbacks']}")
+    print(f"  dfget {url} through peer3: {oras['s']:.2f} s, {oras['bytes'] / oras['s'] / 2**20:.1f} MiB/s "
+          f"(the dfget process to its end), pieces by parent {oras['by_parent']}; rounds {len(rounds['records'])}, "
+          f"fallbacks {rounds['fallbacks']}; origin (TLS) {oras_served}")
+    numbers["oras"] = {**oras, "rounds": len(rounds["records"]), "origin_tls": oras_served}
     numbers.update(host_cpu=host_cpu(), wall_s=time.perf_counter() - t_phase)
     return numbers
 
@@ -3239,6 +3818,32 @@ def kernel_row_bwd(nbr: torch.Tensor, mask: torch.Tensor, hdim: int, launches: i
     }
 
 
+def daemon_and_image(card: str) -> None:
+    """The daemon phase, then the image phase on its cluster, each with the
+    launch counts set to 0 just before it and read just after; every process
+    of both is stopped when the image phase ends, whatever happens."""
+    with contextlib.ExitStack() as daemons:
+        with phase("daemon"):
+            zero_counts()
+            numbers, daemon_cluster = daemon_phase(daemons)
+            # no kernel is on this path: the daemons are host code, the scheduler
+            # scores with GNNScorer's plain ops and the trainer runs SAGELayer's
+            numbers["kernel_launches"] = seen = counts()
+            if any(seen.values()):
+                raise AssertionError(f"the daemon path launched a kernel it does not call: {seen}")
+            print(json.dumps({"daemon": numbers, "card": card}))
+
+        with phase("image"):
+            zero_counts()
+            numbers = image_phase(daemon_cluster)
+            # no kernel is on this path: the proxy, the gateway and the sources
+            # are host code, and the scheduler scores with GNNScorer's plain ops
+            numbers["kernel_launches"] = seen = counts()
+            if any(seen.values()):
+                raise AssertionError(f"the image path launched a kernel it does not call: {seen}")
+            print(json.dumps({"image": numbers, "card": card}))
+
+
 def counts() -> dict:
     return {"neighbor_agg_fwd": neighbor_agg_cuda.LAUNCHES, "neighbor_agg_bwd": neighbor_agg_cuda.BWD_LAUNCHES}
 
@@ -3247,7 +3852,12 @@ def zero_counts() -> None:
     neighbor_agg_cuda.LAUNCHES = neighbor_agg_cuda.BWD_LAUNCHES = 0
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card (see the module docstring).")
+    ap.add_argument("--only", choices=["image"], default=None,
+                    help="run the device phase, then only the daemon and image phases (the image phase runs on "
+                         "the daemon phase's cluster); without it, every phase")
+    args = ap.parse_args(argv)
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -3260,6 +3870,14 @@ def main() -> int:
         print(f"  device: {kind}, count {count}; nvidia-smi: {card}")
         print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}; allow_tf32: matmul "
               f"{torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
+
+    if args.only == "image":
+        daemon_and_image(card)
+        print(f"chip_smoke: the device, daemon and image phases in {time.perf_counter() - t_run:.1f} s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count},
+                          "phases": ["device", "daemon", "image"]}))
+        return 0
 
     with phase("build"):
         t0 = time.perf_counter()
@@ -3399,15 +4017,7 @@ def main() -> int:
             raise AssertionError(f"the sim path launched a kernel it does not call: {seen}")
         print(json.dumps({"sim": numbers, "card": card}))
 
-    with phase("daemon"):
-        zero_counts()
-        numbers = daemon_phase()
-        # no kernel is on this path: the daemons are host code, the scheduler
-        # scores with GNNScorer's plain ops and the trainer runs SAGELayer's
-        numbers["kernel_launches"] = seen = counts()
-        if any(seen.values()):
-            raise AssertionError(f"the daemon path launched a kernel it does not call: {seen}")
-        print(json.dumps({"daemon": numbers, "card": card}))
+    daemon_and_image(card)
 
     with phase("kernels"):
         g = cluster.graph.to("cuda")

@@ -1,11 +1,10 @@
 """Peer-daemon Prometheus metrics (ref client/daemon/metrics/metrics.go): the
 port's copy of dragonfly2_tpu/daemon/metrics.py, the same names and labels in
-the port's registry. The proxy's request counter and the TLS handshake
-families come with the proxy and the mTLS data plane (ROADMAP.md §1, 'Still
-to do' item 4): nothing here would move them.
+the port's registry. The TLS handshake families come with the mTLS data
+plane (ROADMAP.md §1, 'Still to do' item 4): nothing here would move them.
 
 Counters for task outcomes, piece sources (p2p parent vs back-to-source),
-byte traffic both directions; gauges for in-flight work.
+byte traffic both directions, and proxy decisions; gauges for in-flight work.
 """
 
 from __future__ import annotations
@@ -30,6 +29,9 @@ UPLOAD_BYTES = _r.counter(
     "upload_bytes_total", "Piece bytes served to children", subsystem="dfdaemon"
 )
 CONCURRENT_TASKS = _r.gauge("concurrent_tasks", "Tasks in flight", subsystem="dfdaemon")
+PROXY_REQUEST_TOTAL = _r.counter(
+    "proxy_request_total", "Proxy requests", subsystem="dfdaemon", labels=("via",)
+)
 SEED_TASK_TOTAL = _r.counter("seed_task_total", "Seed tasks triggered", subsystem="dfdaemon")
 # crash-safe restart accounting: tasks re-announced at boot, pieces that
 # survived the recovery audit, and claimed pieces the audit dropped

@@ -11,13 +11,20 @@ piece server's HTTP API and the on-disk task layout are the reference's, so
 either package's dfget drives this daemon and either package's conductor
 fetches pieces from it. A booted daemon imports no torch.
 
+The image-acceleration front runs as the reference's does: ``--proxy-port``
+(the HTTP proxy, ``--proxy-rule``), ``--registry-mirror``,
+``--hijack-ca-dir`` with ``--hijack-host`` (HTTPS interception on the proxy
+and the SNI proxy), ``--sni-proxy-port`` and the YAML ``proxy:`` section;
+``--object-storage-port``, ``--object-storage-root`` and
+``--object-storage-backend`` (fs, s3, oss, obs; the remote ones read their
+endpoint and credentials from the environment) and ``object_storage:``
+serve the object gateway behind dfstore. An HTTPS origin behind a private CA
+is trusted through the environment (``SSL_CERT_FILE``), as the process's
+default TLS context reads it.
+
 Refused, never ignored (exit 2, naming the ROADMAP.md item that ports
-them): ``--proxy-port``, ``--proxy-rule``, ``--registry-mirror``,
-``--hijack-ca-dir``, ``--hijack-host``, ``--sni-proxy-port`` and a YAML
-``proxy:`` section that sets them; ``--object-storage-*`` and
-``object_storage:``; ``--data-tls-dir`` and ``--piece-cipher``;
-``--vsock-port``; ``--metrics-port``; a ``tracing:`` section that names an
-exporter.
+them): ``--data-tls-dir`` and ``--piece-cipher``; ``--vsock-port``;
+``--metrics-port``; a ``tracing:`` section that names an exporter.
 """
 
 from __future__ import annotations
@@ -259,6 +266,15 @@ async def run_daemon(
     location: str = "",
     upload_port: int = 0,
     rpc_port: int | None = None,
+    proxy_port: int | None = None,
+    proxy_rules: list | None = None,
+    registry_mirror: str | None = None,
+    hijack_ca_dir: str | None = None,
+    hijack_hosts: list | None = None,
+    sni_proxy_port: int | None = None,
+    object_storage_port: int | None = None,
+    object_storage_root: str | None = None,
+    object_storage_backend: str = "fs",
     manager_addr: str | None = None,
     announce_interval: float = 30.0,
     probe_interval: float | None = None,
@@ -337,6 +353,73 @@ async def run_daemon(
         tcp_server.register_service(DaemonRpcAdapter(engine), DAEMON_METHODS)
         await tcp_server.start()
         engine.rpc_port = tcp_server.port
+    proxy = None
+    sni_proxy = None
+    if proxy_port is not None or sni_proxy_port is not None:
+        from dragonfly2_tpu_torch.daemon.proxy import (
+            HttpsHijack,
+            ProxyConfig,
+            ProxyRule,
+            ProxyServer,
+            RegistryMirrorConfig,
+            SniProxy,
+        )
+
+        hijack = None
+        if hijack_ca_dir:
+            from dragonfly2_tpu_torch.security.ca import CertificateAuthority
+            from dragonfly2_tpu_torch.security.mitm import CertForger
+
+            hijack = HttpsHijack(
+                forger=CertForger(CertificateAuthority(hijack_ca_dir)),
+                hosts=tuple(hijack_hosts) if hijack_hosts else (r".*",),
+            )
+        pcfg = ProxyConfig(
+            rules=[r if isinstance(r, ProxyRule) else ProxyRule(regex=r) for r in (proxy_rules or [])],
+            registry_mirror=RegistryMirrorConfig(base_url=registry_mirror) if registry_mirror else None,
+            https_hijack=hijack,
+        )
+        proxy = ProxyServer(engine, host=ip, port=proxy_port or 0, config=pcfg)
+        if proxy_port is not None:
+            await proxy.start()
+            logger.info("proxy on %s:%d", ip, proxy.port)
+        if sni_proxy_port is not None:
+            sni_proxy = SniProxy(proxy, host=ip, port=sni_proxy_port, hijack=hijack)
+            await sni_proxy.start()
+            logger.info("sni proxy on %s:%d", ip, sni_proxy.port)
+
+    objgw = None
+    if object_storage_port is not None:
+        from dragonfly2_tpu_torch.daemon.objectgw import ObjectGateway
+        from dragonfly2_tpu_torch.objectstorage import new_backend
+
+        if object_storage_backend == "s3":
+            # endpoint/credentials from the environment, the S3 convention
+            from dragonfly2_tpu_torch.objectstorage.s3client import S3Config
+
+            s3cfg = S3Config.from_env()
+            backend = new_backend(
+                "s3", endpoint=s3cfg.endpoint, access_key=s3cfg.access_key,
+                secret_key=s3cfg.secret_key, region=s3cfg.region,
+            )
+        elif object_storage_backend in ("oss", "obs"):
+            # the vendors' env conventions (ALIBABA/HUAWEI cloud CLIs)
+            p = object_storage_backend.upper()
+            backend = new_backend(
+                object_storage_backend,
+                endpoint=os.environ.get(f"{p}_ENDPOINT", ""),
+                access_key=os.environ.get(f"{p}_ACCESS_KEY_ID", ""),
+                secret_key=os.environ.get(
+                    f"{p}_ACCESS_KEY_SECRET", os.environ.get(f"{p}_SECRET_ACCESS_KEY", "")
+                ),
+            )
+        else:
+            backend = new_backend(
+                "fs", root=object_storage_root or (str(storage_root) + "-objects")
+            )
+        objgw = ObjectGateway(engine, backend, host=ip, port=object_storage_port)
+        await objgw.start()
+
     # loop-health sampling is always on (4 clock reads/s): lag histograms
     # must cover the incident, not start after it — /debug/loop serves them
     from dragonfly2_tpu_torch.observability.loophealth import default_monitor
@@ -429,6 +512,12 @@ async def run_daemon(
         recorder.stop()
         announcer.cancel()
         await prober.stop()
+        if sni_proxy is not None:
+            await sni_proxy.stop()
+        if proxy is not None:
+            await proxy.stop()
+        if objgw is not None:
+            await objgw.stop()  # also closes the backend's HTTP session
         await server.stop()
         if tcp_server is not None:
             await tcp_server.stop()
@@ -470,17 +559,8 @@ def _refusals(args: argparse.Namespace, cfg) -> list[str]:
     each; the caller refuses the boot when any is set (flags and the YAML
     values they default from alike)."""
     why = {
-        "--proxy-port": "the HTTP proxy and registry mirror (daemon/proxy.py)",
-        "--proxy-rule": "the HTTP proxy (daemon/proxy.py)",
-        "--registry-mirror": "the registry mirror (daemon/proxy.py)",
-        "--hijack-ca-dir": "HTTPS hijack (daemon/proxy.py, security/mitm.py)",
-        "--hijack-host": "HTTPS hijack (daemon/proxy.py, security/mitm.py)",
-        "--sni-proxy-port": "the SNI proxy (daemon/proxy.py)",
-        "--object-storage-port": "the object gateway (daemon/objectgw.py, objectstorage/)",
-        "--object-storage-root": "the object gateway (daemon/objectgw.py, objectstorage/)",
-        "--object-storage-backend": "the object gateway (daemon/objectgw.py, objectstorage/)",
-        "--data-tls-dir": "the mTLS data plane (security/)",
-        "--piece-cipher": "the mTLS data plane (security/)",
+        "--data-tls-dir": "the mTLS data plane (security/transport.py's DataPlaneTls)",
+        "--piece-cipher": "the mTLS data plane (security/transport.py's DataPlaneTls)",
         "--vsock-port": "the vsock RPC transport (rpc/core.py)",
         "--metrics-port": "the debug and metrics server (observability/server.py)",
     }
@@ -530,20 +610,26 @@ def main() -> None:
     ap.add_argument("--location", default=cfg.location)
     ap.add_argument("--upload-port", type=int, default=cfg.upload_port)
     ap.add_argument("--metrics-port", type=int, default=cfg.metrics_port, help=refused)
-    ap.add_argument("--proxy-port", type=int, default=cfg.proxy.port, help=refused)
-    ap.add_argument("--proxy-rule", action="append", default=list(cfg.proxy.rules) or None,
-                    help=refused)
-    ap.add_argument("--registry-mirror", default=cfg.proxy.registry_mirror, help=refused)
-    ap.add_argument("--hijack-ca-dir", default=cfg.proxy.hijack_ca_dir, help=refused)
-    ap.add_argument("--hijack-host", action="append",
-                    default=list(cfg.proxy.hijack_hosts) or None, help=refused)
-    ap.add_argument("--sni-proxy-port", type=int, default=cfg.proxy.sni_port, help=refused)
+    ap.add_argument("--proxy-port", type=int, default=cfg.proxy.port,
+                    help="HTTP proxy / registry-mirror port (off by default)")
+    ap.add_argument("--proxy-rule", action="append", default=None,
+                    help="URL regex routed through P2P (repeatable; REPLACES config-file rules)")
+    ap.add_argument("--registry-mirror", default=cfg.proxy.registry_mirror,
+                    help="upstream registry base URL for mirror mode")
+    ap.add_argument("--hijack-ca-dir", default=cfg.proxy.hijack_ca_dir,
+                    help="CA dir enabling HTTPS MITM on the proxy (forged leaf certs)")
+    ap.add_argument("--hijack-host", action="append", default=None,
+                    help="host regex to MITM (repeatable; REPLACES config-file hosts; default all when CA set)")
+    ap.add_argument("--sni-proxy-port", type=int, default=cfg.proxy.sni_port,
+                    help="raw-TLS SNI proxy port (off by default)")
     ap.add_argument("--object-storage-port", type=int, default=cfg.object_storage.port,
-                    help=refused)
-    ap.add_argument("--object-storage-root", default=cfg.object_storage.root, help=refused)
-    ap.add_argument("--object-storage-backend",
-                    default=None if cfg.object_storage.backend == "fs" else cfg.object_storage.backend,
-                    help=refused)
+                    help="dfstore object gateway port (off by default)")
+    ap.add_argument("--object-storage-root", default=cfg.object_storage.root,
+                    help="fs backend root (default: <storage>-objects)")
+    ap.add_argument("--object-storage-backend", default=cfg.object_storage.backend,
+                    choices=["fs", "s3", "oss", "obs"],
+                    help="object store behind the gateway; s3 reads AWS_* env "
+                         "vars, oss reads OSS_*, obs reads OBS_*")
     ap.add_argument("--rpc-port", type=int, default=cfg.rpc_port,
                     help="TCP RPC port (seed peers always listen; 0 = ephemeral)")
     ap.add_argument("--vsock-port", type=int, default=cfg.vsock_port, help=refused)
@@ -566,6 +652,19 @@ def main() -> None:
     ap.add_argument("--piece-cipher", default=cfg.piece_cipher, help=refused)
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args()
+    if args.object_storage_backend != "fs":
+        if args.object_storage_root:
+            ap.error("--object-storage-root applies to the fs backend only")
+        required = {
+            "s3": ("AWS_ENDPOINT_URL", "DF_S3_ENDPOINT"),
+            "oss": ("OSS_ENDPOINT",),
+            "obs": ("OBS_ENDPOINT",),
+        }[args.object_storage_backend]
+        if not any(os.environ.get(v) for v in required):
+            ap.error(
+                f"--object-storage-backend {args.object_storage_backend} "
+                f"requires {required[0]} in the environment"
+            )
     refusals = _refusals(args, cfg)
     if refusals:
         for msg in refusals:
@@ -588,6 +687,17 @@ def main() -> None:
             location=args.location,
             upload_port=args.upload_port,
             rpc_port=args.rpc_port,
+            proxy_port=args.proxy_port,
+            proxy_rules=args.proxy_rule if args.proxy_rule is not None else list(cfg.proxy.rules),
+            registry_mirror=args.registry_mirror,
+            hijack_ca_dir=args.hijack_ca_dir,
+            hijack_hosts=(
+                args.hijack_host if args.hijack_host is not None else list(cfg.proxy.hijack_hosts)
+            ),
+            sni_proxy_port=args.sni_proxy_port,
+            object_storage_port=args.object_storage_port,
+            object_storage_root=args.object_storage_root,
+            object_storage_backend=args.object_storage_backend,
             manager_addr=args.manager,
             announce_interval=args.announce_interval,
             probe_interval=args.probe_interval,

@@ -428,3 +428,57 @@ def test_a_drained_bundle_releases_the_card(card, tmp_path, monkeypatch):
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() - base <= one * 1.1
     assert not first.ready and second.ready
+
+
+def test_a_daemon_serving_the_proxy_runs_no_cuda_context(card, tmp_path):
+    """The port's daemon process booted with the proxy, the HTTPS hijack, the
+    SNI proxy and the object gateway, beside this process's CUDA context,
+    answers a request through its proxy and maps no CUDA driver library and
+    no NVIDIA device file, as this process does."""
+    import os
+    import re
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from dragonfly2_tpu_torch.utils.proc import ready_address
+
+    torch.zeros(1, device=card)
+    assert "libcuda" in pathlib.Path("/proc/self/maps").read_text()
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    procs = []
+
+    def spawn(args, name):
+        with open(tmp_path / f"{name}.log", "w") as err:
+            p = subprocess.Popen([sys.executable, "-m", *args], cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+                                 stderr=err, text=True)
+        procs.append(p)
+        return p
+
+    try:
+        deadline = time.monotonic() + 60
+        sched = ready_address(spawn(["dragonfly2_tpu_torch.scheduler.server", "--port", "0"], "scheduler"),
+                              "SCHEDULER_READY", deadline)
+        d = spawn(["dragonfly2_tpu_torch.daemon.server", "--scheduler", sched, "--storage", str(tmp_path / "d"),
+                   "--sock", str(tmp_path / "d.sock"), "--proxy-port", "0", "--sni-proxy-port", "0",
+                   "--hijack-ca-dir", "ca", "--object-storage-port", "0"], "daemon")
+        ready_address(d, "DAEMON_READY", deadline)
+        log = (tmp_path / "daemon.log").read_text()
+        gateway = int(re.search(r"object gateway on [\d.]+:(\d+)", log).group(1))
+        proxy = int(re.search(r"(?<!sni )proxy on [\d.]+:(\d+)", log).group(1))
+        # the gateway's health check, asked through the proxy (a passthrough)
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({"http": f"http://127.0.0.1:{proxy}"}))
+        with opener.open(f"http://127.0.0.1:{gateway}/healthz", timeout=30) as r:
+            assert json.loads(r.read()) == {"status": "ok"}
+        maps = pathlib.Path(f"/proc/{d.pid}/maps").read_text()
+        fds = [os.readlink(f) for f in pathlib.Path(f"/proc/{d.pid}/fd").iterdir()]
+        assert "libcuda" not in maps and "libcudart" not in maps
+        assert not [f for f in fds if "nvidia" in f]
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.wait(timeout=30)
+            p.stdout.close()

@@ -48,7 +48,6 @@ from dragonfly2_tpu_torch.daemon import conductor as port_conductor
 from dragonfly2_tpu_torch.daemon import engine as port_engine
 from dragonfly2_tpu_torch.daemon import metrics as port_metrics
 from dragonfly2_tpu_torch.daemon import pipeline as port_pipeline
-from dragonfly2_tpu_torch.daemon import source as port_source
 from dragonfly2_tpu_torch.daemon import storage as port_storage
 from dragonfly2_tpu_torch.daemon import traffic_shaper as port_shaper
 from dragonfly2_tpu_torch.scheduler import metrics as port_sched_metrics
@@ -508,13 +507,3 @@ def test_checkpoint_fetch_skips_an_already_staged_file(tmp_path):
 
     bounded(port_checkpoint.fetch_checkpoint(NoEngine(), m, dest))
     assert json.loads((dest / port_checkpoint.MANIFEST_NAME).read_text())["files"][0]["task_id"] == "c" * 64
-
-
-def test_unported_source_schemes_name_their_roadmap_item():
-    reg = port_source.SourceRegistry()
-    for url, module in (("s3://b/k", "objectstorage/s3client.py"), ("hdfs://n/p", "daemon/hdfs_source.py"),
-                        ("oras://r/i:t", "daemon/oras_source.py")):
-        with pytest.raises(port_source.SourceError, match="ROADMAP.md") as ei:
-            reg.client_for(url)
-        assert module in str(ei.value)
-    bounded(reg.close())

@@ -11,6 +11,12 @@
 - dfmodel publish and fetch through the daemons: the port's manifest equals
   the reference's apart from ``created_at``; a checkpoint published by the
   reference's daemon is fetched by the port's, bit-equal.
+- The image-acceleration front and the object gateway: a daemon process
+  booted with each of their flags, or their YAML section, answers on the
+  server it starts (the proxy, the registry mirror, the hijack's forged
+  leaf, a tunnel, the SNI proxy, the gateway on the fs and s3 backends); a
+  daemon booted with all of them and driven through each has loaded no
+  torch.
 - The flags and YAML sections whose machinery the port has not ported exit 2
   naming the ROADMAP.md item.
 
@@ -24,8 +30,10 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import signal
+import ssl
 import subprocess
 import sys
 import threading
@@ -38,10 +46,12 @@ import pytest
 import torch
 from aiohttp import web
 
+from fakes3 import FakeS3
+
 from dragonfly2_tpu.cli import dfcache as ref_dfcache
 from dragonfly2_tpu.cli import dfget as ref_dfget
 from dragonfly2_tpu.cli import dfmodel as ref_dfmodel
-from dragonfly2_tpu_torch.cli import dfcache, dfget, dfmodel
+from dragonfly2_tpu_torch.cli import dfcache, dfget, dfmodel, dfstore
 from dragonfly2_tpu_torch.daemon import server as daemon_server
 from dragonfly2_tpu_torch.tpuvm import safetensors as stlib
 from dragonfly2_tpu_torch.utils.proc import ready_address
@@ -141,9 +151,10 @@ class ThreadOrigin:
         self._thread.join(DEADLINE_S)
 
 
-def _spawn(cmd: list[str], cwd: Path, log: Path) -> subprocess.Popen:
+def _spawn(cmd: list[str], cwd: Path, log: Path, env: dict | None = None) -> subprocess.Popen:
     with open(log, "w") as err:
-        return subprocess.Popen(cmd, cwd=cwd, env=_env(), stdout=subprocess.PIPE, stderr=err, text=True)
+        return subprocess.Popen(cmd, cwd=cwd, env={**_env(), **(env or {})}, stdout=subprocess.PIPE, stderr=err,
+                                text=True)
 
 
 def _stop(procs: list[subprocess.Popen]) -> None:
@@ -159,10 +170,11 @@ def _stop(procs: list[subprocess.Popen]) -> None:
         p.stdout.close()
 
 
-def _daemon(cmd: list[str], tmp: Path, name: str, sched: str, procs: list) -> dict:
+def _daemon(cmd: list[str], tmp: Path, name: str, sched: str, procs: list, args: tuple = (),
+            env: dict | None = None) -> dict:
     sock = tmp / f"{name}.sock"
     p = _spawn([*cmd, "--scheduler", sched, "--storage", str(tmp / name), "--sock", str(sock),
-                "--hostname", name], tmp, tmp / f"{name}.log")
+                "--hostname", name, *args], tmp, tmp / f"{name}.log", env)
     procs.append(p)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         line = pool.submit(p.stdout.readline)
@@ -374,28 +386,15 @@ def test_dfmodel_publish_and_fetch_through_the_daemon(cluster, tmp_path, argv):
 
 
 REFUSED = [
-    (["--proxy-port", "0"], "daemon/proxy.py"),
-    (["--proxy-rule", ".*blobs.*"], "daemon/proxy.py"),
-    (["--registry-mirror", "https://registry.example"], "daemon/proxy.py"),
-    (["--hijack-ca-dir", "ca"], "security/mitm.py"),
-    (["--hijack-host", ".*"], "security/mitm.py"),
-    (["--sni-proxy-port", "0"], "daemon/proxy.py"),
-    (["--object-storage-port", "0"], "daemon/objectgw.py"),
-    (["--object-storage-root", "objects"], "objectstorage/"),
-    (["--object-storage-backend", "s3"], "objectstorage/"),
-    (["--data-tls-dir", "certs"], "security/"),
-    (["--piece-cipher", "aes-gcm"], "security/"),
+    (["--data-tls-dir", "certs"], "DataPlaneTls"),
+    (["--piece-cipher", "aes-gcm"], "DataPlaneTls"),
     (["--vsock-port", "5000"], "rpc/core.py"),
     (["--metrics-port", "0"], "observability/server.py"),
-    (["--config", "proxy.yaml"], "daemon/proxy.py"),
-    (["--config", "objects.yaml"], "daemon/objectgw.py"),
     (["--config", "tracing.yaml"], "tracing exporters"),
 ]
 
 
 def _yaml(tmp_path: Path) -> None:
-    (tmp_path / "proxy.yaml").write_text("proxy:\n  rules: ['.*blobs.*']\n")
-    (tmp_path / "objects.yaml").write_text("object_storage:\n  port: 9005\n")
     (tmp_path / "tracing.yaml").write_text("tracing:\n  trace_file: /tmp/spans.jsonl\n")
 
 
@@ -419,7 +418,7 @@ def test_a_refused_flag_exits_2_as_a_process(tmp_path):
                         "--sock", str(tmp_path / "d.sock"), "--data-tls-dir", str(tmp_path)],
                        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=DEADLINE_S)
     assert p.returncode == 2
-    assert "ROADMAP.md" in p.stderr and "security/" in p.stderr
+    assert "ROADMAP.md" in p.stderr and "security/transport.py" in p.stderr
     assert "DAEMON_READY" not in p.stdout
 
 
@@ -427,3 +426,207 @@ def test_dfget_refuses_a_trace_file(tmp_path):
     rc, out, err = cli(dfget.main, ["http://127.0.0.1:9/x", "-O", str(tmp_path / "x"), "--trace-file",
                                     str(tmp_path / "t.jsonl"), "--no-spawn"])
     assert rc == 2 and "ROADMAP.md" in err and out == ""
+
+
+# ---------------------------------------------------------------------------
+# the image-acceleration front and the object gateway
+
+
+class ThreadFakeS3:
+    """``tests/fakes3.py`` (which verifies with the reference's signer) on its
+    own loop and thread."""
+
+    def __init__(self):
+        self.s3 = FakeS3()
+        self._loop = asyncio.new_event_loop()
+        self._ready = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        asyncio.set_event_loop(self._loop)
+        self._loop.run_until_complete(self.s3.__aenter__())
+        self._ready.set()
+        self._loop.run_forever()
+        self._loop.run_until_complete(self.s3.__aexit__(None, None, None))
+        self._loop.close()
+
+    def __enter__(self):
+        self._thread.start()
+        assert self._ready.wait(DEADLINE_S)
+        return self.s3
+
+    def __exit__(self, *exc):
+        self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(DEADLINE_S)
+
+
+_SERVES = {"proxy": r"(?<!sni )proxy on [\d.]+:(\d+)", "sni": r"sni proxy on [\d.]+:(\d+)",
+           "gateway": r"object gateway on [\d.]+:(\d+)"}
+
+
+def _listening(d: dict, server: str) -> int:
+    """The port a booted daemon's log names for one of its servers."""
+    m = re.search(_SERVES[server], d["log"].read_text())
+    assert m, d["log"].read_text()[-2000:]
+    return int(m.group(1))
+
+
+async def _http(method: str, url: str, **kw) -> tuple[int, dict, bytes]:
+    import aiohttp
+
+    async with aiohttp.ClientSession() as sess:
+        async with sess.request(method, url, **kw) as r:
+            return r.status, dict(r.headers), await r.read()
+
+
+async def _connect(port: int, target: str) -> tuple[asyncio.StreamReader, asyncio.StreamWriter, bytes]:
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"CONNECT {target} HTTP/1.1\r\n\r\n".encode())
+    await writer.drain()
+    status = await reader.readline()
+    while (await reader.readline()) not in (b"\r\n", b"\n", b""):
+        pass
+    return reader, writer, status
+
+
+async def _forged_leaf_subject(port: int, ca_pem: Path, connect: str | None) -> dict:
+    """A TLS handshake as "localhost" that trusts only the hijack CA, on the
+    proxy through a CONNECT or on the SNI proxy straight: the leaf's subject."""
+    trust = ssl.create_default_context(cafile=str(ca_pem))
+    if connect is not None:
+        reader, writer, status = await _connect(port, connect)
+        assert b" 200 " in status, status
+    else:
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        await writer.start_tls(trust, server_hostname="localhost")
+        return dict(x[0] for x in writer.get_extra_info("peercert")["subject"])
+    finally:
+        writer.close()
+
+
+FRONT = {
+    "proxy-port": ["--proxy-port", "0"],
+    "proxy-rule": ["--proxy-port", "0", "--proxy-rule", r"\.bin$"],
+    "registry-mirror": ["--proxy-port", "0", "--registry-mirror", "{origin}"],
+    "hijack-ca-dir": ["--proxy-port", "0", "--hijack-ca-dir", "ca"],
+    "hijack-host": ["--proxy-port", "0", "--hijack-ca-dir", "ca", "--hijack-host", "^nomatch$"],
+    "sni-proxy-port": ["--sni-proxy-port", "0", "--hijack-ca-dir", "ca"],
+    "object-storage-port": ["--object-storage-port", "0"],
+    "object-storage-root": ["--object-storage-port", "0", "--object-storage-root", "objects"],
+    "object-storage-backend": ["--object-storage-port", "0", "--object-storage-backend", "s3"],
+    "proxy.yaml": ["--config", "proxy.yaml"],
+    "objects.yaml": ["--config", "objects.yaml"],
+}
+
+
+async def _front_answer(case: str, d: dict, tmp: Path, origin: ThreadOrigin, s3) -> None:
+    """Drive the server ``case`` started in the booted daemon ``d``."""
+    name = f"front-{case}.bin"
+    data = _payload(len(name), 3 << 20)
+    url = origin.add(name, data)
+    if case in ("proxy-port", "proxy-rule", "proxy.yaml"):
+        port = _listening(d, "proxy")
+        status, headers, body = await _http("GET", url, proxy=f"http://127.0.0.1:{port}")
+        assert (status, body) == (200, data)
+        assert headers.get("X-Dragonfly-Via") == (None if case == "proxy-port" else "p2p")
+    elif case == "registry-mirror":
+        status, headers, body = await _http("GET", f"http://127.0.0.1:{_listening(d, 'proxy')}/{name}")
+        assert (status, body) == (200, data)
+    elif case in ("hijack-ca-dir", "sni-proxy-port"):
+        server = "proxy" if case == "hijack-ca-dir" else "sni"
+        subject = await _forged_leaf_subject(_listening(d, server), tmp / "ca" / "ca.pem",
+                                             "localhost:9" if server == "proxy" else None)
+        assert subject["commonName"] == "localhost"
+    elif case == "hijack-host":
+        reader, writer, status = await _connect(_listening(d, "proxy"), f"127.0.0.1:{origin.port}")
+        assert b" 200 " in status, status
+        writer.write(f"GET /{name} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\n\r\n".encode())
+        await writer.drain()
+        resp = await reader.read()
+        writer.close()
+        assert resp.startswith(b"HTTP/1.1 200") and resp.endswith(data)
+    else:
+        data = data[:512 << 10]  # one simple PUT within the s3 fake's 1 MiB body limit
+        port = _listening(d, "gateway")
+        status, _, body = await _http("GET", f"http://127.0.0.1:{port}/healthz")
+        assert (status, json.loads(body)) == (200, {"status": "ok"})
+        store = dfstore.Dfstore(f"http://127.0.0.1:{port}")
+        try:
+            await store.create_bucket("front")
+            put = await store.put_object("front", "k.bin", data)
+            assert put["content_length"] == len(data)
+            assert await store.get_object("front", "k.bin", direct=True) == data
+        finally:
+            await store.close()
+        root = {"object-storage-port": tmp / "front-d-objects", "object-storage-root": tmp / "objects",
+                "objects.yaml": tmp / "yaml-objects"}.get(case)
+        if root is not None:
+            assert (root / "front" / "k.bin").read_bytes() == data
+        else:
+            assert s3.buckets["front"]["k.bin"][0] == data
+
+
+@pytest.mark.parametrize("case", list(FRONT))
+def test_the_image_front_and_gateway_flags_boot_a_serving_daemon(cluster, tmp_path, case):
+    (tmp_path / "proxy.yaml").write_text("proxy:\n  port: 0\n  rules: ['\\.bin$']\n")
+    (tmp_path / "objects.yaml").write_text("object_storage:\n  port: 0\n  root: yaml-objects\n")
+    origin = cluster["origin"]
+    args = [a.replace("{origin}", f"http://127.0.0.1:{origin.port}") for a in FRONT[case]]
+    procs: list[subprocess.Popen] = []
+    with ThreadFakeS3() as s3:
+        env = {"AWS_ENDPOINT_URL": s3.endpoint, "AWS_ACCESS_KEY_ID": "testkey", "AWS_SECRET_ACCESS_KEY": "testsecret"}
+        try:
+            d = _daemon(PORT_DAEMON, tmp_path, "front-d", cluster["scheduler"], procs, args, env)
+            asyncio.run(asyncio.wait_for(_front_answer(case, d, tmp_path, origin, s3), DEADLINE_S))
+        finally:
+            _stop(procs)
+    assert procs[0].returncode == 0, d["log"].read_text()[-2000:]
+
+
+_PROBE = """
+import asyncio, runpy, sys
+from dragonfly2_tpu_torch.utils import proc
+
+serve = proc.run_until_signalled
+
+async def probed(ready_event=None, on_ready=None):
+    await serve(ready_event, on_ready)
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "flax", "dragonfly2_tpu"))
+    print("LOADED " + ",".join(bad), flush=True)
+
+proc.run_until_signalled = probed
+sys.argv = ["daemon", *sys.argv[1:]]
+runpy.run_module("dragonfly2_tpu_torch.daemon.server", run_name="__main__")
+"""
+
+
+def test_a_daemon_serving_the_whole_front_loads_no_torch(cluster, tmp_path):
+    origin = cluster["origin"]
+    procs: list[subprocess.Popen] = []
+    # the mirror names the origin as localhost, so that the rule, not the
+    # mirror, routes the absolute-form 127.0.0.1 URLs
+    args = ("--proxy-port", "0", "--proxy-rule", r"\.bin$", "--registry-mirror", f"http://localhost:{origin.port}",
+            "--hijack-ca-dir", "ca", "--hijack-host", "^localhost$", "--sni-proxy-port", "0",
+            "--object-storage-port", "0")
+    try:
+        d = _daemon([sys.executable, "-c", _PROBE], tmp_path, "front-d", cluster["scheduler"], procs, args)
+
+        async def drive():
+            for case in ("proxy-rule", "registry-mirror", "hijack-ca-dir", "sni-proxy-port", "object-storage-port"):
+                await _front_answer(case, d, tmp_path, origin, None)
+            # a gateway read peer to peer: the engine pulls the file:// origin
+            store = dfstore.Dfstore(f"http://127.0.0.1:{_listening(d, 'gateway')}")
+            try:
+                assert await store.get_object("front", "k.bin") == (tmp_path / "front-d-objects" / "front"
+                                                                    / "k.bin").read_bytes()
+            finally:
+                await store.close()
+
+        asyncio.run(asyncio.wait_for(drive(), DEADLINE_S))
+        d["proc"].send_signal(signal.SIGTERM)
+        out, _ = d["proc"].communicate(timeout=DEADLINE_S)
+    finally:
+        _stop(procs)
+    assert d["proc"].returncode == 0, d["log"].read_text()[-2000:]
+    assert out.strip() == "LOADED", out
