@@ -329,7 +329,35 @@ Phases, each of which must hold or the run exits non-zero at once:
              clock, the client process to its end), pieces by parent, rounds
              and fallbacks, the origin's GETs and bytes; the CA backend and the
              forge time of a first leaf.
-17. kernels  each kernel against its plain PyTorch version on the card, at the
+17. cluster  the secure, observable cluster through the port's dfcluster.Cluster
+             (span files on): the manager with REST open, 2 federated
+             schedulers (--evaluator ml, the manager link, --metrics-port 0,
+             DRAGONFLY_NATIVE_SCORER=0, every round recorded), and a seed and
+             three peer daemons spawned through the same Cluster, each with
+             --data-tls-dir (one leaf for 127.0.0.1 from a port ca.py CA, its
+             backend printed), --metrics-port 0 and a hostname and upload port
+             chosen before boot. The daemon phase's GNN (hidden 256, embed
+             128, 3 layers, 100 steps) trained on the card from
+             daemon_records over 16384 hosts (the daemons' ids among them)
+             and published through this manager: GET
+             /api/v1/models/rollout/gnn shows it active, both schedulers'
+             frames read torch and each /metrics renders
+             ml_serving_mode{mode="torch"} 1. A 1 GiB file of seeded bytes
+             preheated with POST /api/v1/jobs: the job reaches SUCCESS, the
+             seed's conductor took the file from the origin, which served its
+             bytes once. dfget --trace-file through peer 1, then peers 2 and 3
+             at once, over mTLS: digest-exact, no more origin bytes, every
+             piece from parents, every round torch with no fallback, each
+             fetching daemon's piece_tls_handshakes_total above 0, no
+             handshake failure on any, at least one resumed; the negotiated
+             suite and the policy, MiB/s by the host clock. A client with no
+             certificate is refused by a piece server. SIGTERM, then
+             dfcluster.verify_trace (the dfget's rounds on exactly one
+             scheduler, federation spans on both) and dftrace over the span
+             files: peer 1's critical path and the top stages by exclusive
+             time. Then python -m dragonfly2_tpu_torch.cli.dfcluster demo
+             --verify-trace at its default size under a 120 s deadline.
+18. kernels  each kernel against its plain PyTorch version on the card, at the
              main paths' shapes and on edge cases, and against itself over two
              launches (bit for bit), then timed with CUDA events beside its
              plain version, its bound and one PyTorch library call. K2 is
@@ -360,6 +388,7 @@ import pathlib
 import platform
 import re
 import shutil
+import signal
 import socket
 import ssl
 import subprocess
@@ -513,6 +542,11 @@ IMAGE_LAYER_MIB, IMAGE_SEED, IMAGE_PULL_CONCURRENCY = (512, 256, 128, 64, 32, 16
 IMAGE_REPO, IMAGE_TAG, ORAS_REPO, ORAS_TAG = "library/dragonfly-demo", "v1", "library/dragonfly-artifact", "v1"
 IMAGE_HIJACK_LAYER, IMAGE_SNI_LAYER, IMAGE_ORAS_LAYER, IMAGE_TLS_PORT = 1, 2, 3, 443
 GATEWAY_OBJECT_BYTES, GATEWAY_SEED = 256 << 20, 1
+# the cluster phase: the daemon phase's file, records, widths and steps on a
+# fresh dfcluster cluster (2 federated ml schedulers; a seed and three peers
+# on the mTLS piece plane); the preheat job's and the demo's deadlines; the
+# free disk it needs (the file in the origin, four stores, three outputs)
+CLUSTER_SCHEDULERS, CLUSTER_PREHEAT_S, CLUSTER_DEMO_S, CLUSTER_DISK_BYTES = 2, 300.0, 120.0, 10 << 30
 OCI_MANIFEST = "application/vnd.oci.image.manifest.v1+json"
 REPO = pathlib.Path(__file__).resolve().parent
 # tests/test_ops.py's own tolerances for the Pallas kernel against XLA
@@ -3595,6 +3629,317 @@ def image_phase(ctx: dict) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# the cluster phase: the secure, observable cluster through dfcluster
+
+
+def scrape(port: int) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        return r.read().decode()
+
+
+def logged_port(log: pathlib.Path, what: str, deadline: float) -> int:
+    """The port a process's log names for ``<what> on <ip>:<port>``."""
+    pat = re.compile(re.escape(what) + r" on [\d.]+:(\d+)")
+    while True:
+        m = pat.search(log.read_text())
+        if m:
+            return int(m.group(1))
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{log.name} names no '{what}' port: {log.read_text()[-2000:]}")
+        time.sleep(0.1)
+
+
+def metric_value(text: str, name: str, **labels) -> float:
+    """One sample of a /metrics page (0 when the child was never set)."""
+    want = name + ("{" + ",".join(f'{k}="{v}"' for k, v in labels.items()) + "}" if labels else "")
+    for line in text.splitlines():
+        if line.startswith(want + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def rest_call(port: int, method: str, path: str, body: dict | None = None) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def preheat(rest: int, url: str, deadline: float) -> tuple[dict, float]:
+    """POST /api/v1/jobs a file preheat, then poll the job to its end."""
+    t0 = time.perf_counter()
+    status, job = rest_call(rest, "POST", "/api/v1/jobs", {"type": "preheat", "args": {"type": "file", "url": url}})
+    if status != 201:
+        raise AssertionError(f"POST /api/v1/jobs answered {status}: {job}")
+    while True:
+        status, st = rest_call(rest, "GET", f"/api/v1/jobs/{job['id']}")
+        if status == 200 and st["state"] in ("SUCCESS", "FAILURE"):
+            return st, time.perf_counter() - t0
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the preheat job by its deadline: {st}")
+        time.sleep(0.25)
+
+
+async def tls_probe(port: int, certs: dict, policy: str, with_cert: bool) -> str:
+    """A handshake with a daemon's piece server as a peer makes it (the
+    cluster's leaf), or as a client with no certificate: the negotiated
+    suite, or the refusal."""
+    from dragonfly2_tpu_torch.security.transport import AsyncTlsTransport, data_client_ssl_context
+
+    loop = asyncio.get_running_loop()
+    s = socket.socket()
+    s.setblocking(False)
+    await loop.sock_connect(s, ("127.0.0.1", port))
+    if with_cert:
+        ctx = data_client_ssl_context(certs["ca"], certs["cert"], certs["key"], policy=policy)
+    else:
+        ctx = data_client_ssl_context(certs["ca"], policy=policy)
+    try:
+        t = await asyncio.wait_for(AsyncTlsTransport.connect(s, ctx), 10.0)
+    except (ssl.SSLError, ConnectionError, OSError, asyncio.TimeoutError) as e:
+        s.close()
+        return f"refused: {type(e).__name__}: {e}"
+    try:
+        # TLS 1.2 settles a client certificate in the handshake itself: a
+        # request that gets an answer went through
+        await t.sendall(b"GET /healthz HTTP/1.1\r\nHost: x\r\n\r\n")
+        got = await asyncio.wait_for(t.recv(64), 10.0)
+        return f"{t.cipher()[0]} {t.cipher()[1]}" if got else "refused: closed with no answer"
+    except (ssl.SSLError, ConnectionError, OSError, asyncio.TimeoutError) as e:
+        return f"refused: {type(e).__name__}: {e}"
+    finally:
+        t.close()
+
+
+def cluster_phase() -> dict:
+    """The secure, observable cluster in the port's processes, through
+    ``dfcluster.Cluster`` (see the module docstring); every process is
+    stopped when the phase ends, whatever happens."""
+    from dragonfly2_tpu_torch.cli import dfcluster
+
+    t_phase = time.perf_counter()
+    numbers: dict = {"file_bytes": DAEMON_FILE_BYTES}
+    with contextlib.ExitStack() as stack:
+        tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-cluster-"))
+        stack.callback(shutil.rmtree, tmp, ignore_errors=True)
+        free = shutil.disk_usage(tmp).free
+        print(f"  free disk under {tmp}: {free / 2**30:.1f} GiB")
+        if free < CLUSTER_DISK_BYTES:
+            raise AssertionError(f"the phase needs {CLUSTER_DISK_BYTES / 2**30:.0f} GiB free, {free / 2**30:.1f} there")
+        ca = CertificateAuthority(tmp / "ca")
+        certs = write_issued(ca.issue("chip-smoke-daemon", sans=["127.0.0.1"]), tmp / "certs")
+        print(f"  the cluster's CA (backend {ca.backend}) issued one leaf for 127.0.0.1 into {tmp / 'certs'}")
+        # the schedulers serve GNNScorer on the card and record every round
+        cluster = dfcluster.Cluster(str(tmp / "cluster"), trace=True, env={
+            "DRAGONFLY_TS_INTERVAL": "0.5", "DRAGONFLY_NATIVE_SCORER": "0", "DRAGONFLY_DECISION_SAMPLE": "1"})
+        os.makedirs(cluster.root)
+        stack.callback(cluster.down)
+        deadline = time.monotonic() + DAEMON_BOOT_S
+        procs = DaemonCluster(tmp, {**os.environ, "PYTHONPATH": str(REPO)})
+        stack.callback(procs.close)
+        (tmp / "origin.py").write_text(ORIGIN_SCRIPT)
+        (tmp / "www").mkdir()
+        procs.spawn("origin", [str(tmp / "origin.py"), str(tmp / "www")])
+        t0 = time.perf_counter()
+        cluster.up(schedulers=CLUSTER_SCHEDULERS, daemons=0, federation_interval=1.0,
+                   extra_scheduler_args=["--evaluator", "ml", "--keepalive-interval", "1",
+                                         "--model-watch-interval", "1", "--metrics-port", "0"],
+                   extra_daemon_args=["--data-tls-dir", str(tmp / "certs"), "--metrics-port", "0",
+                                      "--announce-interval", "2"])
+        names = {"seed": "cl-seed", "peer1": "cl-peer1", "peer2": "cl-peer2", "peer3": "cl-peer3"}
+        ports = {k: free_port("127.0.0.1") for k in names}
+        host_ids = {k: f"{names[k]}-{ports[k]}" for k in names}
+        index = {}
+        for k in names:
+            index[k] = cluster.spawn_daemon(
+                ["--hostname", names[k], "--upload-port", str(ports[k]), *(["--seed"] if k == "seed" else [])])
+        numbers["boot_s"] = time.perf_counter() - t0
+        logs = {k: pathlib.Path(cluster.log_path(f"daemon-{i}")) for k, i in index.items()}
+        sched_logs = [pathlib.Path(cluster.log_path(f"scheduler-{i}")) for i in range(CLUSTER_SCHEDULERS)]
+        dmetrics = {k: logged_port(logs[k], "daemon metrics", deadline) for k in names}
+        smetrics = [logged_port(log, "scheduler metrics", deadline) for log in sched_logs]
+        policies = {k: re.search(r"data-plane mTLS on: cipher=(\S+) ktls=(.*)", logs[k].read_text()) for k in names}
+        if not all(policies.values()) or any("(mTLS, raw)" not in logs[k].read_text() for k in names):
+            raise AssertionError(f"a daemon is not on the mTLS piece plane: {policies}")
+        policy = policies["seed"].group(1)
+        numbers["cipher_policy"] = {k: m.group(1) for k, m in policies.items()}
+        numbers["ktls"] = policies["seed"].group(2)
+        want = write_seeded_file(tmp / "www" / "blob.bin", DAEMON_FILE_BYTES, DAEMON_FILE_SEED)
+        oport = int(procs.ready("origin", "ORIGIN_READY", deadline))
+        print(f"  dfcluster up in {numbers['boot_s']:.1f} s: manager {cluster.manager_addr} (REST :{cluster.rest_port}, "
+              f"open), schedulers {cluster.scheduler_addrs} (metrics :{smetrics}), seed + 3 peers on mTLS "
+              f"(policy {numbers['cipher_policy']}, kTLS {numbers['ktls']}; metrics {dmetrics})")
+
+        # 1. the GNN, trained on the card and served by both schedulers
+        t0 = time.perf_counter()
+        row = asyncio.run(daemon_train(tmp, cluster.manager_addr, list(host_ids.values())))
+        numbers["train_to_published_s"] = time.perf_counter() - t0
+        status, rollout = rest_call(cluster.rest_port, "GET", "/api/v1/models/rollout/gnn")
+        active = (rollout.get("active") or {})
+        if status != 200 or active.get("version") != row["version"] or active.get("state") != "active":
+            raise AssertionError(f"GET /api/v1/models/rollout/gnn answered {status}: {rollout}")
+        t0 = time.perf_counter()
+        for i in range(CLUSTER_SCHEDULERS):
+            asyncio.run(wait_serving(cluster.manager_addr, f"sched-{i}", time.monotonic() + DAEMON_ATTACH_S))
+            if "via engine torch on cuda" not in sched_logs[i].read_text():
+                raise AssertionError(f"scheduler {i} does not serve the model on the card")
+        numbers["published_to_torch_frames_s"] = time.perf_counter() - t0
+        for i, port in enumerate(smetrics):
+            text = scrape(port)
+            if metric_value(text, "dragonfly_scheduler_ml_serving_mode", mode="torch") != 1.0:
+                raise AssertionError(f"scheduler {i}'s /metrics: {[ln for ln in text.splitlines() if 'serving_mode' in ln]}")
+        print(f"  GNN {row['version']} trained on the card from {2 * DAEMON_RECORDS} records over {NUM_HOSTS} hosts "
+              f"(the daemons' ids among them) and published in {numbers['train_to_published_s']:.1f} s; the REST front "
+              f"shows it active; both schedulers' frames read torch {numbers['published_to_torch_frames_s']:.1f} s "
+              f"later and their /metrics render ml_serving_mode{{mode=\"torch\"}} 1")
+
+        # 2. the preheat: REST -> job queue -> a scheduler's job loop -> the seed
+        url = f"http://127.0.0.1:{oport}/blob.bin"
+        task_id = idgen.task_id(url)
+        job, numbers["preheat_s"] = preheat(cluster.rest_port, url, time.monotonic() + CLUSTER_PREHEAT_S)
+        seeded = done_line(logs["seed"], task_id)
+        after_preheat = origin_stats(oport)
+        print(f"  preheat job {job['id']}: {job['state']} in {numbers['preheat_s']:.2f} s "
+              f"({DAEMON_FILE_BYTES / numbers['preheat_s'] / 2**20:.1f} MiB/s, host clock, POST to the job's end); "
+              f"the seed: {seeded['pieces']} pieces, {seeded['source_bytes']} bytes from the source; origin {after_preheat}")
+        if job["state"] != "SUCCESS" or seeded["source_bytes"] != DAEMON_FILE_BYTES:
+            raise AssertionError(f"the preheat: {job}, the seed's task {seeded}")
+        if after_preheat["bytes"] != DAEMON_FILE_BYTES:
+            raise AssertionError(f"the origin served {after_preheat}, not the file's {DAEMON_FILE_BYTES} bytes once")
+
+        # 3. dfget over mTLS: peer 1, then peers 2 and 3 at once
+        outs = {k: tmp / f"{k}.out" for k in ("peer1", "peer2", "peer3")}
+        runs: dict[str, dict] = {}
+
+        def fetch(k: str) -> dict:
+            t0 = time.perf_counter()
+            r = cluster.dfget(index[k], url, str(outs[k]), timeout=DAEMON_DOWNLOAD_S, trace_name=f"dfget-{k}")
+            if r.returncode:
+                raise AssertionError(f"dfget through {k} exited {r.returncode}: {r.stderr[-2000:]}")
+            return {"s": time.perf_counter() - t0}
+
+        runs["peer1"] = fetch("peer1")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            both = {k: pool.submit(fetch, k) for k in ("peer2", "peer3")}
+            runs.update({k: f.result() for k, f in both.items()})
+        after_all = origin_stats(oport)
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            shas = dict(zip(outs, pool.map(file_sha256, outs.values())))
+        for k, run in runs.items():
+            run.update(done_line(logs[k], task_id), mib_per_s=DAEMON_FILE_BYTES / run["s"] / 2**20)
+            run["by_parent"] = parent_names(run["by_parent"], names)
+            print(f"  dfget --trace-file through {k} over mTLS: {run['s']:.2f} s, {run['mib_per_s']:.1f} MiB/s (host "
+                  f"clock, dfget process to exit), pieces by parent {run['by_parent']}, {run['source_bytes']} bytes "
+                  f"from the source")
+        if any(s != want for s in shas.values()):
+            raise AssertionError(f"sha256 of the outputs {shas} != the origin file's {want}")
+        if after_all != after_preheat:
+            raise AssertionError(f"the origin served more after the preheat: {after_all} (then {after_preheat})")
+        for k, run in runs.items():
+            if run["source_bytes"] or sum(run["by_parent"].values()) != run["pieces"] or not run["pieces"]:
+                raise AssertionError(f"{k} did not take every piece from parents: {run}")
+        records, fb = [], collections.Counter()
+        for saddr in cluster.scheduler_addrs:
+            got = asyncio.run(task_rounds(saddr, task_id))
+            records += got["records"]
+            fb.update(got["fallbacks"])
+        modes = [(r["serving_mode"], r["model_version"]) for r in records]
+        print(f"  the schedulers' rounds for the task: {len(modes)} ({dict(collections.Counter(modes))}); "
+              f"ML_BASE_FALLBACK_TOTAL {dict(fb)}")
+        if not modes or any(m != ("torch", row["version"]) for m in modes) or any(fb.values()):
+            raise AssertionError(f"rounds {modes}, fallbacks {dict(fb)}: not every round scored torch on the card")
+        handshakes = {}
+        for k in names:
+            text = scrape(dmetrics[k])
+            handshakes[k] = {
+                "full": metric_value(text, "dragonfly_dfdaemon_piece_tls_handshakes_total", resumed="false"),
+                "resumed": metric_value(text, "dragonfly_dfdaemon_piece_tls_handshakes_total", resumed="true"),
+                "failures": metric_value(text, "dragonfly_dfdaemon_piece_tls_handshake_failures_total"),
+                "upload_bytes": metric_value(text, "dragonfly_dfdaemon_upload_bytes_total"),
+            }
+        print(f"  piece TLS handshakes by daemon (each counts those it made as a client): {handshakes}")
+        if any(handshakes[k]["full"] + handshakes[k]["resumed"] <= 0 for k in runs) \
+                or any(h["failures"] for h in handshakes.values()) \
+                or not sum(h["resumed"] for h in handshakes.values()):
+            raise AssertionError(f"handshakes: {handshakes}")
+        suite = asyncio.run(tls_probe(ports["seed"], certs, policy, with_cert=True))
+        print(f"  negotiated on the seed's piece server: {suite} (policy {policy})")
+        if suite.startswith("refused"):
+            raise AssertionError(f"the cluster's own leaf was refused: {suite}")
+        for p in outs.values():
+            p.unlink()
+        numbers.update(downloads=runs, origin=after_all, task_rounds=len(modes), fallbacks=dict(fb),
+                       handshakes=handshakes, suite=suite, preheat=job["result"])
+
+        # 4. a client with no certificate
+        refused = asyncio.run(tls_probe(ports["peer1"], certs, policy, with_cert=False))
+        print(f"  a client with no certificate on peer 1's piece server: {refused}")
+        if not refused.startswith("refused"):
+            raise AssertionError(f"a client with no certificate was served: {refused}")
+        numbers["no_cert"] = refused
+
+        # 5. the trace: SIGTERM flushes every span file
+        cluster.down()
+        dfcluster.verify_trace(cluster, "dfget-peer1")
+        spans = [json.loads(ln) for ln in pathlib.Path(cluster.trace_dir, "dfget-peer1.jsonl").read_text().splitlines()]
+        trace_id = next(s["trace_id"] for s in spans if s["name"] == "dfget.download")
+        files = sorted(str(p) for p in pathlib.Path(cluster.trace_dir).glob("*.jsonl"))
+        dftrace = [sys.executable, "-m", "dragonfly2_tpu_torch.cli.dftrace", "--trace", trace_id]
+        env = {**os.environ, "PYTHONPATH": str(REPO)}
+        text = subprocess.run([*dftrace, *files], env=env, capture_output=True, text=True, timeout=CLI_DEADLINE_S)
+        if text.returncode or "critical path" not in text.stdout:
+            raise AssertionError(f"dftrace exited {text.returncode}: {text.stderr[-2000:]}")
+        print("  dftrace over the span files, peer 1's dfget trace:")
+        for line in text.stdout.splitlines()[2:]:
+            if line.startswith("stage table"):
+                break
+            print(f"    {line}")
+        js = subprocess.run([*dftrace, "--json", *files], env=env, capture_output=True, text=True,
+                            timeout=CLI_DEADLINE_S)
+        (trace,) = json.loads(js.stdout)["traces"]
+        exclusive: collections.Counter = collections.Counter()
+        for hop in trace["critical_path"]:
+            exclusive[hop["name"]] += hop["exclusive_ms"]
+        numbers["trace"] = {"trace_id": trace_id, "spans": trace["spans"], "wall_ms": trace["wall_ms"],
+                            "top_exclusive_ms": dict(exclusive.most_common(5))}
+        print(f"  top stages by exclusive time on that critical path: {numbers['trace']['top_exclusive_ms']} "
+              f"(wall {trace['wall_ms']:.1f} ms, {trace['spans']} spans)")
+
+    # 6. the user's own command, interrupted past its deadline (SIGINT lets
+    # it stop the processes it started) and killed 30 s later
+    t0 = time.perf_counter()
+    demo = subprocess.Popen([sys.executable, "-m", "dragonfly2_tpu_torch.cli.dfcluster", "demo", "--verify-trace"],
+                            env={**os.environ, "PYTHONPATH": str(REPO)}, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = demo.communicate(timeout=CLUSTER_DEMO_S)
+    except subprocess.TimeoutExpired:
+        demo.send_signal(signal.SIGINT)
+        try:
+            demo.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            demo.kill()
+            demo.communicate()
+        raise AssertionError(f"dfcluster demo --verify-trace ran past its {CLUSTER_DEMO_S:.0f} s") from None
+    numbers["demo_s"] = time.perf_counter() - t0
+    for line in out.splitlines():
+        print(f"    {line}")
+    if demo.returncode:
+        raise AssertionError(f"dfcluster demo --verify-trace exited {demo.returncode}: {err[-2000:]}")
+    numbers.update(host_cpu=host_cpu(), wall_s=time.perf_counter() - t_phase)
+    return numbers
+
+
 def edge_case_inputs() -> dict:
     """Named (h, neighbors, mask) CPU inputs that each kernel must get right."""
     rng = np.random.default_rng(0)
@@ -3844,6 +4189,21 @@ def daemon_and_image(card: str) -> None:
             print(json.dumps({"image": numbers, "card": card}))
 
 
+def cluster_and_check(card: str) -> None:
+    """The cluster phase, with the launch counts set to 0 just before it and
+    read just after."""
+    with phase("cluster"):
+        zero_counts()
+        numbers = cluster_phase()
+        # no kernel is on this path: the daemons, the manager and the REST
+        # front are host code, the trainer runs SAGELayer's plain ops and the
+        # schedulers score with GNNScorer's
+        numbers["kernel_launches"] = seen = counts()
+        if any(seen.values()):
+            raise AssertionError(f"the cluster path launched a kernel it does not call: {seen}")
+        print(json.dumps({"cluster": numbers, "card": card}))
+
+
 def counts() -> dict:
     return {"neighbor_agg_fwd": neighbor_agg_cuda.LAUNCHES, "neighbor_agg_bwd": neighbor_agg_cuda.BWD_LAUNCHES}
 
@@ -3854,9 +4214,10 @@ def zero_counts() -> None:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card (see the module docstring).")
-    ap.add_argument("--only", choices=["image"], default=None,
-                    help="run the device phase, then only the daemon and image phases (the image phase runs on "
-                         "the daemon phase's cluster); without it, every phase")
+    ap.add_argument("--only", choices=["image", "cluster"], default=None,
+                    help="image: run the device phase, then only the daemon and image phases (the image phase "
+                         "runs on the daemon phase's cluster); cluster: the device phase, then the cluster "
+                         "phase; without it, every phase")
     args = ap.parse_args(argv)
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3870,6 +4231,14 @@ def main(argv: list[str] | None = None) -> int:
         print(f"  device: {kind}, count {count}; nvidia-smi: {card}")
         print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}; allow_tf32: matmul "
               f"{torch.backends.cuda.matmul.allow_tf32}, cudnn {torch.backends.cudnn.allow_tf32}")
+
+    if args.only == "cluster":
+        cluster_and_check(card)
+        print(f"chip_smoke: the device and cluster phases in {time.perf_counter() - t_run:.1f} s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count},
+                          "phases": ["device", "cluster"]}))
+        return 0
 
     if args.only == "image":
         daemon_and_image(card)
@@ -4018,6 +4387,7 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({"sim": numbers, "card": card}))
 
     daemon_and_image(card)
+    cluster_and_check(card)
 
     with phase("kernels"):
         g = cluster.graph.to("cuda")

@@ -9,8 +9,8 @@ checkAndSpawnDaemon behavior at cmd/dfget/cmd/root.go:266).
   python -m dragonfly2_tpu_torch.cli.dfget http://origin/file -O /tmp/out \
       --scheduler 127.0.0.1:9000
 
-``--trace-file`` (or DRAGONFLY_TRACE_FILE) exits 2: the port's tracer has no
-JSON-lines exporter yet (ROADMAP.md §1, 'Left out': tracing exporters).
+``--trace-file`` records this download's trace (sampled at 100%) as JSON
+lines, the input of ``dftrace``.
 """
 
 from __future__ import annotations
@@ -96,8 +96,9 @@ async def single_download(
     from dragonfly2_tpu_torch.observability.tracing import default_tracer
 
     t0 = time.monotonic()
-    # trace ROOT for the download chain (recorded in process; the port's rpc
-    # client ships no context to the daemon yet)
+    # trace ROOT for the download chain: the rpc client ships this context
+    # to the daemon, whose conductor/scheduler/parent-daemon spans all join
+    # the one trace (`dftrace <files>` reassembles it)
     with default_tracer().span("dfget.download", url=url, output=output):
         result = await client.call(
             "download",
@@ -246,20 +247,21 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--spawn-timeout", type=float, default=10.0)
     ap.add_argument("--no-spawn", action="store_true", help="fail if daemon absent")
     ap.add_argument("--trace-file", default=os.environ.get("DRAGONFLY_TRACE_FILE", ""),
-                    help="refused: the JSON-lines span exporter is not ported yet")
+                    help="record this invocation's trace spans (JSON lines; "
+                         "sampled at 100%% — merge with the services' files "
+                         "via dftrace)")
     args = ap.parse_args(argv)
-    if args.trace_file:
-        print(
-            "dfget: --trace-file: the span exporters are not ported yet "
-            "(ROADMAP.md §1, 'Left out': tracing exporters)",
-            file=sys.stderr,
-        )
-        return 2
     from dragonfly2_tpu_torch.observability.tracing import configure_default_tracer
 
-    # the root opens at the SERVICE default rate: a bare dfget must not
-    # record every download
-    configure_default_tracer("dfget")
+    # --trace-file: always sampled — the operator asked for THIS download's
+    # timeline, not a 1% draw. Without it, the root still opens but at the
+    # SERVICE default rate: a bare dfget must not ship an always-sampled
+    # context that forces the whole cluster to record every download.
+    configure_default_tracer(
+        "dfget",
+        trace_file=args.trace_file or None,
+        sample_rate=1.0 if args.trace_file else None,
+    )
     return asyncio.run(download(args))
 
 

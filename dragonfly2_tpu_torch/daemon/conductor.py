@@ -583,11 +583,6 @@ class PeerTaskConductor:
     ):
         from dragonfly2_tpu_torch.utils.dflog import with_context
 
-        if data_tls is not None:
-            raise NotImplementedError(
-                "the mTLS data plane (security/) is not ported yet "
-                "(ROADMAP.md §1, 'Still to do' item 4)"
-            )
         self.peer_id = peer_id
         self.meta = meta
         self.host = host
@@ -600,6 +595,11 @@ class PeerTaskConductor:
         self.headers = headers or None  # origin request headers (auth etc.)
         self.cfg = config or ConductorConfig()
         self.dispatcher = PieceDispatcher(stripe_window=self.cfg.stripe_window)
+        # DataPlaneTls bundle: parents' metadata + piece endpoints speak
+        # https/mTLS (the shared raw client carries its own copy; this one
+        # drives the aiohttp session + URL scheme)
+        self._data_tls = data_tls
+        self._scheme = "https" if data_tls is not None else "http"
         # With a node-wide shaper (daemon/traffic_shaper.py) the conductor
         # draws from a dynamically-allocated slice of the HOST budget; the
         # standalone per-task bucket is the no-engine fallback (tests, direct
@@ -1084,8 +1084,8 @@ class PeerTaskConductor:
                 round_no += 1
                 # the round span parents every piece span its workers open
                 # (tasks created inside inherit the contextvar context) plus
-                # the round-end report flush — the traced unit ROADMAP #1's
-                # "per-round glue" lever is accounted in
+                # the round-end report flush — the traced unit the
+                # "per-round glue" cost is accounted in
                 with default_tracer().span(
                     "conductor.dispatch_round",
                     round=round_no, pieces=len(available),
@@ -1223,7 +1223,7 @@ class PeerTaskConductor:
         version = -1
         errors = 0  # consecutive failures feed the shared backoff ladder
         url = (
-            f"http://{_url_host(state.info.ip)}:{state.info.download_port}"
+            f"{self._scheme}://{_url_host(state.info.ip)}:{state.info.download_port}"
             f"/metadata/{self.meta.task_id}"
         )
         while not state.blocked:
@@ -1586,7 +1586,7 @@ class PeerTaskConductor:
                     headers["traceparent"] = ctx.traceparent()
                 t_recv = time.monotonic() if sampled else 0.0
                 async with session.get(
-                    f"http://{_url_host(state.info.ip)}:{state.info.download_port}{path_qs}",
+                    f"{self._scheme}://{_url_host(state.info.ip)}:{state.info.download_port}{path_qs}",
                     headers=headers,
                     timeout=aiohttp.ClientTimeout(total=piece_timeout),
                 ) as resp:
@@ -1781,7 +1781,12 @@ class PeerTaskConductor:
             # 1 MiB read buffer: the 64 KiB default hits the stream reader's
             # high-water mark hundreds of times per 16 MiB checkpoint piece,
             # each a transport pause/resume round-trip on the event loop
-            self._session = aiohttp.ClientSession(read_bufsize=1 << 20)
+            connector = None
+            if self._data_tls is not None:
+                connector = aiohttp.TCPConnector(ssl=self._data_tls.client_ctx)
+            self._session = aiohttp.ClientSession(
+                read_bufsize=1 << 20, connector=connector
+            )
         return self._session
 
     # pieces at/above this size fetch via the raw recv_into client; below it
@@ -1792,7 +1797,7 @@ class PeerTaskConductor:
         if self._raw_client is None:
             from dragonfly2_tpu_torch.daemon.rawrange import RawRangeClient
 
-            self._raw_client = RawRangeClient()
+            self._raw_client = RawRangeClient(tls=self._data_tls)
         return self._raw_client
 
     def _pipeline(self):

@@ -1,7 +1,6 @@
 """Peer-daemon YAML config schema (ref client/config/peerhost.go:176-476), the
 port's copy of dragonfly2_tpu/daemon/config.py: one file configures either
-package's daemon, and the port's refuses the sections it has not ported
-(daemon/server.py).
+package's daemon.
 
 ``python -m dragonfly2_tpu_torch.daemon.server --config daemon.yaml``; flags
 override file values. Defaults mirror the reference's peerhost defaults

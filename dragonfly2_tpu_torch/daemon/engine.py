@@ -9,8 +9,9 @@ completed tasks short-circuit to local storage, partial tasks resume from
 their finished-piece bitset. One engine per daemon process; it owns the
 storage manager, the upload (piece) server, and the scheduler client.
 
-The mTLS data plane (``data_tls=``) is not ported yet: a non-None bundle
-raises ``NotImplementedError`` naming the ROADMAP.md item (``security/``).
+With a ``data_tls=`` bundle (``security.transport.DataPlaneTls``) the upload
+server and every piece fetch run mTLS; either package's engine fetches
+pieces from the other's over it.
 """
 
 from __future__ import annotations
@@ -114,12 +115,6 @@ class PeerEngine:
             SamplingTrafficShaper,
         )
 
-        if data_tls is not None:
-            raise NotImplementedError(
-                "the mTLS data plane (security/) is not ported yet "
-                "(ROADMAP.md §1, 'Still to do' item 4)"
-            )
-
         self.ip = ip
         self.hostname = hostname or f"peer-{idgen.local_ip()}"
         # TCP RPC port, set by the daemon server when it listens on TCP —
@@ -131,7 +126,15 @@ class PeerEngine:
         self.storage = StorageManager(storage_root)
         self.scheduler = scheduler
         self.sources = SourceRegistry()
-        self.upload = UploadServer(self.storage, host=ip, port=upload_port)
+        # secure-by-default data plane: a DataPlaneTls bundle
+        # (security/transport.py) puts the upload server AND every piece
+        # fetch on mTLS with the cipher the host's one-shot probe picked;
+        # None keeps the plain wire (tests, closed networks)
+        self.data_tls = data_tls
+        self.upload = UploadServer(
+            self.storage, host=ip, port=upload_port,
+            tls=None if data_tls is None else data_tls.server_ctx,
+        )
         self.conductor_config = conductor_config or ConductorConfig()
         # ONE host-wide download budget shared by all concurrent conductors
         # (ref NewSamplingTrafficShaper, traffic_shaper.go:139) — per-task
@@ -211,9 +214,11 @@ class PeerEngine:
             from dragonfly2_tpu_torch.daemon import metrics
 
             # one-hot wire posture for dftop: which cipher piece MB/s rides
-            # (plain: the mTLS data plane is not ported)
+            active = self.data_tls.policy if self.data_tls is not None else "plain"
             for cipher in ("plain", "aes-gcm", "chacha20"):
-                metrics.PIECE_CIPHER.set(1.0 if cipher == "plain" else 0.0, cipher=cipher)
+                metrics.PIECE_CIPHER.set(
+                    1.0 if cipher == active else 0.0, cipher=cipher
+                )
             # Crash recovery BEFORE the upload server opens: the audit
             # digest-verifies every claimed piece of restored incomplete
             # tasks (a metadata snapshot can claim bits over torn data after
@@ -298,11 +303,14 @@ class PeerEngine:
     def _shared_raw_client(self):
         """One raw range client for ALL conductors: keep-alive connections to
         a parent survive across tasks, so a recursive dfget (or a multi-file
-        checkpoint fetch) reuses sockets instead of reconnecting per file."""
+        checkpoint fetch) reuses sockets instead of reconnecting per file.
+        Under TLS the sharing matters twice: pooled connections skip the
+        handshake entirely, and the bundle's session cache lets every fresh
+        connect across all tasks resume abbreviated."""
         if self._raw_client is None:
             from dragonfly2_tpu_torch.daemon.rawrange import RawRangeClient
 
-            self._raw_client = RawRangeClient()
+            self._raw_client = RawRangeClient(tls=self.data_tls)
         return self._raw_client
 
     def _shared_pipeline(self):
@@ -420,6 +428,7 @@ class PeerEngine:
             shaper=self.shaper,
             raw_client=self._shared_raw_client(),
             pipeline=self._shared_pipeline(),
+            data_tls=self.data_tls,
             flow_weight=priority,
         )
         producer = asyncio.ensure_future(conductor.run())

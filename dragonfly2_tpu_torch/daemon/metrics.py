@@ -1,7 +1,6 @@
 """Peer-daemon Prometheus metrics (ref client/daemon/metrics/metrics.go): the
 port's copy of dragonfly2_tpu/daemon/metrics.py, the same names and labels in
-the port's registry. The TLS handshake families come with the mTLS data
-plane (ROADMAP.md §1, 'Still to do' item 4): nothing here would move them.
+the port's registry.
 
 Counters for task outcomes, piece sources (p2p parent vs back-to-source),
 byte traffic both directions, and proxy decisions; gauges for in-flight work.
@@ -41,7 +40,19 @@ TASK_RECOVERED_TOTAL = _r.counter(
     "task_recovered_total", "Tasks re-announced after restart",
     subsystem="dfdaemon", labels=("state",),
 )
-# ---- data-plane posture ----
+# ---- data-plane TLS (security/transport.py + rawrange/upload wiring) ----
+# resumed="true" rides the abbreviated handshake (cached session accepted by
+# the parent); "false" is a full ECDHE+cert exchange. The alert plane watches
+# the failure family: a parent fleet refusing handshakes (cert rollover gone
+# wrong, cipher mismatch) shows up here long before piece failures dominate.
+PIECE_TLS_HANDSHAKES_TOTAL = _r.counter(
+    "piece_tls_handshakes_total", "Data-plane TLS handshakes completed",
+    subsystem="dfdaemon", labels=("resumed",),
+)
+PIECE_TLS_HANDSHAKE_FAILURES_TOTAL = _r.counter(
+    "piece_tls_handshake_failures_total",
+    "Data-plane TLS handshakes that failed", subsystem="dfdaemon",
+)
 # one-hot active piece cipher ({cipher="aes-gcm"|"chacha20"|"plain"}): set at
 # engine boot so dftop can label piece MB/s with the wire posture
 PIECE_CIPHER = _r.gauge(

@@ -22,9 +22,13 @@ serve the object gateway behind dfstore. An HTTPS origin behind a private CA
 is trusted through the environment (``SSL_CERT_FILE``), as the process's
 default TLS context reads it.
 
-Refused, never ignored (exit 2, naming the ROADMAP.md item that ports
-them): ``--data-tls-dir`` and ``--piece-cipher``; ``--vsock-port``;
-``--metrics-port``; a ``tracing:`` section that names an exporter.
+The secure, observable daemon is the reference's too: ``--data-tls-dir``
+(``tls.crt``, ``tls.key`` and ``ca.pem``, as ``security.ca.write_issued``
+writes them) puts the piece plane on mTLS with the cipher the one-shot
+probe picks, or ``--piece-cipher``; ``--vsock-port`` serves the daemon RPC
+over AF_VSOCK; ``--metrics-port`` serves the debug server (``/metrics``,
+``/debug/*``); a ``tracing:`` section exports spans to a JSON-lines file,
+an OTLP file or an OTLP endpoint.
 """
 
 from __future__ import annotations
@@ -39,8 +43,6 @@ from dragonfly2_tpu_torch.rpc.core import RpcError, RpcServer
 from dragonfly2_tpu_torch.utils.proc import run_until_signalled
 
 logger = logging.getLogger("daemon")
-
-_STILL_TO_PORT = "ROADMAP.md §1, 'Still to do' item 4"
 
 DAEMON_METHODS = [
     "download", "stat_task", "delete_task", "export_task", "host_info",
@@ -266,6 +268,8 @@ async def run_daemon(
     location: str = "",
     upload_port: int = 0,
     rpc_port: int | None = None,
+    vsock_port: int | None = None,
+    metrics_port: int | None = None,
     proxy_port: int | None = None,
     proxy_rules: list | None = None,
     registry_mirror: str | None = None,
@@ -283,6 +287,8 @@ async def run_daemon(
     disk_gc_threshold: float | None = None,
     total_download_rate_bps: float | None = None,
     per_task_rate_bps: float | None = None,
+    data_tls_dir: str | None = None,
+    piece_cipher: str | None = None,
     ready_event: asyncio.Event | None = None,
 ) -> None:
     from dragonfly2_tpu_torch.resilience import faultline
@@ -323,6 +329,25 @@ async def run_daemon(
     conductor_config = None
     if per_task_rate_bps is not None:
         conductor_config = ConductorConfig(download_rate_bps=per_task_rate_bps)
+    # secure-by-default piece plane: --data-tls-dir names a directory holding
+    # tls.crt/tls.key/ca.pem (the cache layout security.ca.write_issued
+    # produces from the manager's issuance RPC); the bundle's one-shot probe
+    # picks the cipher unless --piece-cipher pins it
+    data_tls = None
+    if data_tls_dir:
+        from pathlib import Path
+
+        from dragonfly2_tpu_torch.security.transport import DataPlaneTls
+
+        d = Path(data_tls_dir)
+        data_tls = DataPlaneTls.from_paths(
+            str(d / "tls.crt"), str(d / "tls.key"), str(d / "ca.pem"),
+            policy=piece_cipher or None,
+        )
+        logging.getLogger(__name__).info(
+            "data-plane mTLS on: cipher=%s ktls=%s", data_tls.policy,
+            data_tls.ktls["reason"],
+        )
     engine = PeerEngine(
         storage_root=storage_root,
         scheduler=scheduler,
@@ -337,6 +362,7 @@ async def run_daemon(
         storage_ttl=storage_ttl,
         storage_capacity_bytes=storage_capacity_bytes,
         disk_gc_threshold=disk_gc_threshold,
+        data_tls=data_tls,
     )
     await engine.start()
 
@@ -353,6 +379,14 @@ async def run_daemon(
         tcp_server.register_service(DaemonRpcAdapter(engine), DAEMON_METHODS)
         await tcp_server.start()
         engine.rpc_port = tcp_server.port
+    # AF_VSOCK listener for VM-isolated clients — e.g. dfget inside a Kata
+    # container reaching the host daemon (ref pkg/rpc/vsock.go transport)
+    vsock_server = None
+    if vsock_port is not None:
+        vsock_server = RpcServer(vsock_port=vsock_port)
+        vsock_server.register_service(DaemonRpcAdapter(engine), DAEMON_METHODS)
+        await vsock_server.start()
+        logger.info("daemon vsock rpc on %s", vsock_server.address)
     proxy = None
     sni_proxy = None
     if proxy_port is not None or sni_proxy_port is not None:
@@ -436,6 +470,12 @@ async def run_daemon(
     recorder.start()
     alert_engine = default_engine()
     alert_engine.start()
+    debug = None
+    if metrics_port is not None:
+        from dragonfly2_tpu_torch.observability.server import start_debug_server
+
+        debug = await start_debug_server(host=ip, port=metrics_port)
+        logger.info("daemon metrics on %s:%d", ip, debug.port)
     logger.info(
         "daemon rpc on %s (tcp %s), piece server on :%d",
         sock_path, engine.rpc_port or "-", engine.upload.port,
@@ -518,9 +558,13 @@ async def run_daemon(
             await proxy.stop()
         if objgw is not None:
             await objgw.stop()  # also closes the backend's HTTP session
+        if debug is not None:
+            await debug.stop()
         await server.stop()
         if tcp_server is not None:
             await tcp_server.stop()
+        if vsock_server is not None:
+            await vsock_server.stop()
         # graceful departure (ref scheduler v2 LeaveHost): tell the scheduler
         # this host's peers are gone NOW so swarms re-parent immediately
         # instead of burning retries against a dead peer until keepalive GC
@@ -554,31 +598,6 @@ def _host_stats() -> dict:
     return stats
 
 
-def _refusals(args: argparse.Namespace, cfg) -> list[str]:
-    """What this boot asks for that the port does not run yet, one message
-    each; the caller refuses the boot when any is set (flags and the YAML
-    values they default from alike)."""
-    why = {
-        "--data-tls-dir": "the mTLS data plane (security/transport.py's DataPlaneTls)",
-        "--piece-cipher": "the mTLS data plane (security/transport.py's DataPlaneTls)",
-        "--vsock-port": "the vsock RPC transport (rpc/core.py)",
-        "--metrics-port": "the debug and metrics server (observability/server.py)",
-    }
-    out = [
-        f"{flag}: needs {what}, not ported yet ({_STILL_TO_PORT})"
-        for flag, what in why.items()
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, [])
-    ]
-    for name in ("otlp_file", "otlp_endpoint", "trace_file"):
-        if getattr(cfg.tracing, name):
-            out.append(
-                f"tracing.{name}: the span exporters are not ported yet "
-                "(ROADMAP.md §1, 'Left out': tracing exporters); the port "
-                "records spans in process only"
-            )
-    return out
-
-
 def main() -> None:
     import sys
 
@@ -596,7 +615,6 @@ def main() -> None:
         print(f"daemon: {e}", file=sys.stderr)
         raise SystemExit(2)
 
-    refused = "refused: not ported yet"
     ap = argparse.ArgumentParser(description="dragonfly2_tpu_torch peer daemon", parents=[pre])
     ap.add_argument("--scheduler", required=not cfg.scheduler, default=cfg.scheduler or None,
                     help="scheduler address host:port")
@@ -609,7 +627,8 @@ def main() -> None:
     ap.add_argument("--idc", default=cfg.idc)
     ap.add_argument("--location", default=cfg.location)
     ap.add_argument("--upload-port", type=int, default=cfg.upload_port)
-    ap.add_argument("--metrics-port", type=int, default=cfg.metrics_port, help=refused)
+    ap.add_argument("--metrics-port", type=int, default=cfg.metrics_port,
+                    help="dedicated debug/metrics port (off by default)")
     ap.add_argument("--proxy-port", type=int, default=cfg.proxy.port,
                     help="HTTP proxy / registry-mirror port (off by default)")
     ap.add_argument("--proxy-rule", action="append", default=None,
@@ -632,7 +651,8 @@ def main() -> None:
                          "vars, oss reads OSS_*, obs reads OBS_*")
     ap.add_argument("--rpc-port", type=int, default=cfg.rpc_port,
                     help="TCP RPC port (seed peers always listen; 0 = ephemeral)")
-    ap.add_argument("--vsock-port", type=int, default=cfg.vsock_port, help=refused)
+    ap.add_argument("--vsock-port", type=int, default=cfg.vsock_port,
+                    help="AF_VSOCK RPC port for VM-isolated clients (Kata)")
     ap.add_argument("--manager", default=cfg.manager, help="manager address host:port")
     ap.add_argument("--announce-interval", type=float, default=30.0,
                     help="scheduler announce / manager stats-frame cadence "
@@ -648,8 +668,13 @@ def main() -> None:
                     help="evict LRU complete tasks when disk usage passes this percent")
     ap.add_argument("--log-dir", default=cfg.log_dir,
                     help="per-component rotating log files (console only when unset)")
-    ap.add_argument("--data-tls-dir", default=cfg.data_tls_dir, help=refused)
-    ap.add_argument("--piece-cipher", default=cfg.piece_cipher, help=refused)
+    ap.add_argument("--data-tls-dir", default=cfg.data_tls_dir,
+                    help="directory with tls.crt/tls.key/ca.pem: piece plane "
+                         "(upload server + fetches) runs mTLS with cipher "
+                         "autoselection")
+    ap.add_argument("--piece-cipher", default=cfg.piece_cipher,
+                    choices=["aes-gcm", "chacha20"],
+                    help="pin the data-plane cipher (default: one-shot probe)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args()
     if args.object_storage_backend != "fs":
@@ -665,16 +690,15 @@ def main() -> None:
                 f"--object-storage-backend {args.object_storage_backend} "
                 f"requires {required[0]} in the environment"
             )
-    refusals = _refusals(args, cfg)
-    if refusals:
-        for msg in refusals:
-            print(f"daemon: {msg}", file=sys.stderr)
-        raise SystemExit(2)
     from dragonfly2_tpu_torch.observability.tracing import configure_default_tracer
     from dragonfly2_tpu_torch.utils.dflog import setup_logging
 
     setup_logging(args.log_dir, level=logging.DEBUG if args.verbose else logging.INFO)
-    configure_default_tracer("dragonfly-daemon", sample_rate=cfg.tracing.sample_rate)
+    configure_default_tracer(
+        "dragonfly-daemon",
+        otlp_file=cfg.tracing.otlp_file, otlp_endpoint=cfg.tracing.otlp_endpoint,
+        trace_file=cfg.tracing.trace_file, sample_rate=cfg.tracing.sample_rate,
+    )
     asyncio.run(
         run_daemon(
             scheduler_addr=args.scheduler,
@@ -687,6 +711,8 @@ def main() -> None:
             location=args.location,
             upload_port=args.upload_port,
             rpc_port=args.rpc_port,
+            vsock_port=args.vsock_port,
+            metrics_port=args.metrics_port,
             proxy_port=args.proxy_port,
             proxy_rules=args.proxy_rule if args.proxy_rule is not None else list(cfg.proxy.rules),
             registry_mirror=args.registry_mirror,
@@ -714,6 +740,8 @@ def main() -> None:
             ),
             total_download_rate_bps=cfg.rate_limit.total_download_mib_per_s * (1 << 20),
             per_task_rate_bps=cfg.rate_limit.per_task_mib_per_s * (1 << 20),
+            data_tls_dir=args.data_tls_dir,
+            piece_cipher=args.piece_cipher,
         )
     )
 

@@ -1,5 +1,5 @@
 """Piece upload server: serves stored pieces to child peers over HTTP (the
-port of dragonfly2_tpu/daemon/upload.py).
+port of dragonfly2_tpu/daemon/upload.py, plain and mTLS).
 
 Parity with reference client/daemon/upload/upload_manager.go:92-127,214
 (HTTP GET /download/{taskID[:3]}/{taskID}?peerId= with Range headers) plus a
@@ -9,20 +9,32 @@ GET /metadata/{taskID} for the parent's finished-piece bitset + digests.
 Rate-limited by the shared token bucket (1 GiB/s default upload cap,
 ref client/config/constants.go:47).
 
-TLS: not ported yet. The reference serves mTLS through a raw server on
-``AsyncTlsTransport`` when given a ``tls=`` context; here a non-None
-``tls=`` raises ``NotImplementedError`` naming the ROADMAP.md item
-(``security/``). The plain path is the reference's: aiohttp + sendfile.
+TLS (`tls=` server context from security/transport.py): the piece plane
+serves mTLS through a RAW asyncio server built on AsyncTlsTransport instead
+of aiohttp — asyncio's SSLProtocol write path measured ~350 MB/s regardless
+of peer on the reference's CPU host (per-record Python in the encrypt
+pipeline), a 3x tax the fan-out cannot pay. The raw server speaks the same HTTP/1.1 contract (206 ranges
+with Content-Length framing, the /metadata long-poll, keep-alive) but
+streams bodies through `send_file_range`: preadv into ONE reused
+record-aligned buffer, encrypt through the BIO, big blocking sendalls — the
+whole chain on a worker thread with the GIL released, which is what
+replaces `sendfile` until kTLS exists (probed at context build and reported,
+never acted on — see security.transport.probe_ktls). The plain path
+keeps aiohttp + sendfile untouched.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import math
 import os
+import socket as socketlib
+import ssl as _ssl
 import time
 import weakref
 from collections import OrderedDict
+from urllib.parse import parse_qsl, unquote
 
 from aiohttp import web
 
@@ -31,6 +43,26 @@ from dragonfly2_tpu_torch.utils.pieces import parse_http_range
 from dragonfly2_tpu_torch.utils.ratelimit import TokenBucket
 
 logger = logging.getLogger(__name__)
+
+_MAX_REQUEST_HEAD = 16 << 10
+# idle bound armed on the threaded TLS body send (per-sendall): a client
+# that stops reading cannot park a worker thread in send(2) forever —
+# shutdown-on-close wakes it, this self-unblocks it even without a close
+_TLS_SEND_TIMEOUT_S = 30.0
+
+_REASONS = {200: "OK", 206: "Partial Content", 400: "Bad Request",
+            404: "Not Found", 416: "Range Not Satisfiable", 500: "Internal Server Error"}
+
+
+class _HttpError(Exception):
+    """Routed request failure on the raw TLS server — becomes a plain-text
+    error response, mirroring the aiohttp handlers' web.HTTP* raises."""
+
+    def __init__(self, status: int, text: str):
+        super().__init__(text)
+        self.status = status
+        self.text = text
+
 
 def _close_span_once(holder: list) -> None:
     """Exit an entered serve span exactly once (prepare's finally, or the
@@ -89,14 +121,12 @@ class UploadServer:
         rate_limit_bps: float = 1 << 30,
         tls=None,
     ):
-        if tls is not None:
-            raise NotImplementedError(
-                "the mTLS piece plane (security/) is not ported yet "
-                "(ROADMAP.md §1, 'Still to do' item 4)"
-            )
         self.storage = storage
         self.host = host
         self.port = port
+        # server ssl.SSLContext (security.transport.data_server_ssl_context):
+        # mTLS piece serving with the reused-buffer streaming body path
+        self.tls = tls
         self.bucket = TokenBucket(rate_limit_bps, burst=64 << 20)
         self.bytes_served = 0
         self.pieces_served = 0
@@ -108,6 +138,10 @@ class UploadServer:
         self._recent_serves: OrderedDict[tuple[str, int, int], int] = OrderedDict()
         self._fd_cache: OrderedDict[str, int] = OrderedDict()  # task_id -> O_RDONLY fd
         self._runner: web.AppRunner | None = None
+        # raw TLS server state (module docstring): accept loop + live conns
+        self._tls_lsock: "socketlib.socket | None" = None
+        self._tls_accept: asyncio.Task | None = None
+        self._tls_conns: set[asyncio.Task] = set()
 
     _RECENT_SERVES_MAX = 4096
     _FD_CACHE_MAX = 32
@@ -122,6 +156,9 @@ class UploadServer:
         return app
 
     async def start(self) -> None:
+        if self.tls is not None:
+            await self._start_tls_raw()
+            return
         # handler_cancellation: parked long-poll metadata handlers must die
         # with the client connection / server shutdown, not hold cleanup for
         # the full longpoll window.
@@ -139,6 +176,18 @@ class UploadServer:
         if self._runner is not None:
             await self._runner.cleanup()
             self._runner = None
+        if self._tls_accept is not None:
+            self._tls_accept.cancel()
+            await asyncio.gather(self._tls_accept, return_exceptions=True)
+            self._tls_accept = None
+        if self._tls_lsock is not None:
+            self._tls_lsock.close()
+            self._tls_lsock = None
+        for t in list(self._tls_conns):
+            t.cancel()
+        if self._tls_conns:
+            await asyncio.gather(*list(self._tls_conns), return_exceptions=True)
+        self._tls_conns.clear()
         for fd in self._fd_cache.values():
             try:
                 os.close(fd)
@@ -251,8 +300,8 @@ class UploadServer:
 
     @staticmethod
     def _metadata_payload(ts: TaskStorage, task_id: str, have_hex: str | None) -> dict:
-        """The metadata response body. Raises ValueError on a malformed
-        `have` bitset."""
+        """The metadata response body (shared by the aiohttp and raw-TLS
+        servers). Raises ValueError on a malformed `have` bitset."""
         m = ts.meta
         digests = m.piece_digests
         if have_hex:
@@ -337,7 +386,7 @@ class UploadServer:
             raise
 
     def _account_serve(self, ts, task_id, rng, span) -> None:
-        """Serve accounting for the sendfile body path."""
+        """Shared serve accounting for the sendfile and TLS body paths."""
         self.bytes_served += rng.length
         self.pieces_served += 1
         if self.pieces_served % 64 == 0:
@@ -371,3 +420,251 @@ class UploadServer:
             chunk_size=1 << 20,
             headers={"Content-Type": "application/octet-stream"},
         )
+
+
+    # ---- raw TLS server (module docstring: the mTLS piece plane) ----
+
+    async def _start_tls_raw(self) -> None:
+        family = socketlib.AF_INET6 if ":" in self.host else socketlib.AF_INET
+        lsock = socketlib.socket(family, socketlib.SOCK_STREAM)
+        lsock.setsockopt(socketlib.SOL_SOCKET, socketlib.SO_REUSEADDR, 1)
+        lsock.bind((self.host, self.port))
+        lsock.listen(128)
+        lsock.setblocking(False)
+        self._tls_lsock = lsock
+        self.port = lsock.getsockname()[1]
+        self._tls_accept = asyncio.ensure_future(self._tls_accept_loop())
+        logger.info("upload server on %s:%d (mTLS, raw)", self.host, self.port)
+
+    async def _tls_accept_loop(self) -> None:
+        from dragonfly2_tpu_torch.resilience.backoff import BackoffPolicy
+
+        loop = asyncio.get_running_loop()
+        # transient-accept pacing: fd pressure clears in ms, so start small
+        backoff = BackoffPolicy(base=0.05, multiplier=2.0, max_delay=1.0, jitter=0.3)
+        accept_failures = 0
+        while True:
+            try:
+                conn, _addr = await loop.sock_accept(self._tls_lsock)
+                accept_failures = 0
+            except asyncio.CancelledError:
+                return
+            except OSError as e:
+                if self._tls_lsock.fileno() < 0:
+                    return  # listener closed under us (stop())
+                # transient accept failure (ECONNABORTED, EMFILE/ENFILE
+                # under fd pressure): the listener is still live and bound —
+                # returning here would silently stop accepting piece
+                # connections forever while clients hang on the backlog
+                logger.warning("TLS piece-server accept failed, retrying: %r", e)
+                await backoff.sleep(accept_failures)
+                accept_failures += 1
+                continue
+            conn.setblocking(False)
+            conn.setsockopt(socketlib.IPPROTO_TCP, socketlib.TCP_NODELAY, 1)
+            # deeper kernel pipeline: encrypt-ahead depth for the send path
+            conn.setsockopt(socketlib.SOL_SOCKET, socketlib.SO_SNDBUF, 4 << 20)
+            t = asyncio.ensure_future(self._tls_conn_loop(conn))
+            self._tls_conns.add(t)
+            t.add_done_callback(self._tls_conns.discard)
+
+    async def _tls_conn_loop(self, conn: "socketlib.socket") -> None:
+        from dragonfly2_tpu_torch.security.transport import AsyncTlsTransport
+
+        try:
+            tr = await AsyncTlsTransport.accept(conn, self.tls)
+        except (_ssl.SSLError, ConnectionError, OSError, asyncio.TimeoutError) as e:
+            # plaintext speaker, bad client cert, or a half-open probe: the
+            # mTLS posture refuses it at the handshake, quietly
+            logger.debug("TLS piece-server handshake refused: %r", e)
+            conn.close()
+            return
+        try:
+            while True:
+                try:
+                    req = await self._tls_read_request(tr)
+                except _HttpError as e:
+                    # malformed head (oversized, non-GET, bad request line):
+                    # tell the client why, then drop the connection — the
+                    # request framing may be desynced past recovery
+                    await self._tls_send_simple(
+                        tr, e.status, e.text.encode(), connection="close"
+                    )
+                    # drain what the client already sent (a POST body, the
+                    # rest of an oversized head) before closing: close()
+                    # with unread bytes queued answers with RST, which can
+                    # destroy the in-flight 400 before the client reads it.
+                    # Bounded in bytes, per-read idle, AND total wall-clock
+                    # — a client that streams (or trickles) forever gets cut
+                    # off, response delivered or not
+                    try:
+                        loop = asyncio.get_running_loop()
+                        deadline = loop.time() + 2.0
+                        drained = 0
+                        while drained < (1 << 20) and loop.time() < deadline:
+                            chunk = await asyncio.wait_for(tr.recv(8192), 0.5)
+                            if not chunk:
+                                break  # client read the 400 and closed
+                            drained += len(chunk)
+                    except (asyncio.TimeoutError, ConnectionError, OSError):
+                        pass
+                    return
+                if req is None:
+                    return  # clean keep-alive close
+                path, query, headers = req
+                try:
+                    await self._tls_dispatch(tr, path, query, headers)
+                except _HttpError as e:
+                    await self._tls_send_simple(tr, e.status, e.text.encode())
+        except (ConnectionError, OSError, asyncio.IncompleteReadError) as e:
+            logger.debug("TLS piece-server connection dropped: %r", e)
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — one bad request/connection must
+            # never take down the serve plane; the child retries elsewhere
+            logger.exception("TLS piece-server connection failed")
+        finally:
+            tr.close()
+
+    async def _tls_read_request(self, tr) -> "tuple[str, dict, dict] | None":
+        """One request head: (path, query-dict, headers-dict), or None on a
+        clean close between requests. GET-only (the piece wire contract)."""
+        head = bytearray()
+        while True:
+            end = head.find(b"\r\n\r\n")
+            if end >= 0:
+                break
+            if len(head) > _MAX_REQUEST_HEAD:
+                raise _HttpError(400, "request head too large")
+            chunk = await tr.recv(8192)
+            if not chunk:
+                if head:
+                    raise ConnectionError("client closed mid-request")
+                return None
+            head += chunk
+        lines = head[:end].decode("latin-1").split("\r\n")
+        parts = lines[0].split(" ")
+        if len(parts) != 3 or parts[0] != "GET":
+            raise _HttpError(400, f"unsupported request line {lines[0]!r}")
+        target = parts[1]
+        path, _, qs = target.partition("?")
+        query = dict(parse_qsl(qs, keep_blank_values=True))
+        headers: dict[str, str] = {}
+        for ln in lines[1:]:
+            k, _, v = ln.partition(":")
+            headers[k.strip().lower()] = v.strip()
+        return unquote(path), query, headers
+
+    async def _tls_send_simple(
+        self, tr, status: int, body: bytes, content_type: str = "text/plain",
+        connection: str = "keep-alive",
+    ) -> None:
+        head = (
+            f"HTTP/1.1 {status} {_REASONS.get(status, 'OK')}\r\n"
+            f"Content-Type: {content_type}\r\n"
+            f"Content-Length: {len(body)}\r\n"
+            f"Connection: {connection}\r\n"
+            "\r\n"
+        ).encode("ascii")
+        await tr.sendall(head + body)
+
+    async def _tls_dispatch(self, tr, path: str, query: dict, headers: dict) -> None:
+        import json
+
+        if path == "/healthz":
+            await self._tls_send_simple(
+                tr, 200, b'{"ok": true}', content_type="application/json"
+            )
+            return
+        if path.startswith("/metadata/"):
+            task_id = path[len("/metadata/"):]
+            ts = self.storage.get(task_id)
+            if ts is None:
+                raise _HttpError(404, f"task {task_id} unknown")
+            since = query.get("since")
+            if since is not None:
+                try:
+                    wait_s = float(query.get("wait", "25"))
+                    if not math.isfinite(wait_s):
+                        raise _HttpError(400, "wait must be finite")
+                    await ts.wait_version(
+                        int(since), min(max(0.0, wait_s), self.MAX_LONGPOLL_S)
+                    )
+                except ValueError:
+                    raise _HttpError(400, "since/wait must be numeric")
+            try:
+                payload = self._metadata_payload(ts, task_id, query.get("have"))
+            except ValueError:
+                raise _HttpError(400, "have must be a hex bitset")
+            await self._tls_send_simple(
+                tr, 200, json.dumps(payload).encode(), content_type="application/json"
+            )
+            return
+        if path.startswith("/download/"):
+            rest = path[len("/download/"):]
+            prefix, _, task_id = rest.partition("/")
+            await self._tls_serve_download(tr, prefix, task_id, headers)
+            return
+        raise _HttpError(404, f"no route for {path}")
+
+    async def _tls_serve_download(self, tr, prefix: str, task_id: str, headers: dict) -> None:
+        """The mTLS twin of _handle_download + _serve_range: identical
+        validation and accounting, with the body streamed by the transport's
+        worker-thread encrypt+send path under the task pin."""
+        if prefix != task_id[:3]:
+            raise _HttpError(400, "prefix/task mismatch")
+        ts = self.storage.get(task_id)
+        if ts is None:
+            raise _HttpError(404, f"task {task_id} unknown")
+        total = ts.meta.content_length
+        if total <= 0 or ts.meta.piece_size <= 0:
+            raise _HttpError(404, f"task {task_id} metadata not ready")
+        range_header = headers.get("range")
+        if range_header is None:
+            raise _HttpError(400, "Range header required (piece-granular server)")
+        try:
+            rng = parse_http_range(range_header, total)
+        except ValueError as e:
+            raise _HttpError(416, str(e))
+        if not ts.meta.done:
+            psize = ts.meta.piece_size
+            for idx in range(rng.start // psize, (rng.start + rng.length - 1) // psize + 1):
+                if not ts.has_piece(idx):
+                    raise _HttpError(404, f"piece {idx} not yet available")
+
+        from dragonfly2_tpu_torch.observability.tracing import (
+            TRACEPARENT_HEADER,
+            SpanContext,
+            default_tracer,
+        )
+
+        # rate-limit BEFORE the span opens (the aiohttp path's discipline):
+        # a disconnect cancelling the acquire must not leak an entered span
+        await self.bucket.acquire(rng.length)
+        span = None
+        remote = SpanContext.from_traceparent(headers.get(TRACEPARENT_HEADER))
+        if remote is not None:
+            span = default_tracer().span(  # dflint: disable=DF027 entered here, exited in this handler's finally so the span covers the threaded body send
+                "upload.serve_piece", parent=remote,
+                task_id=task_id, range_start=rng.start, range_length=rng.length,
+            )
+            span.__enter__()
+        ts.pin()  # the send IS the handler here: pinned end to end
+        try:
+            self._account_serve(ts, task_id, rng, span)
+            head = (
+                "HTTP/1.1 206 Partial Content\r\n"
+                "Content-Type: application/octet-stream\r\n"
+                f"Content-Length: {rng.length}\r\n"
+                f"Content-Range: bytes {rng.start}-{rng.start + rng.length - 1}/{total}\r\n"
+                "Connection: keep-alive\r\n"
+                "\r\n"
+            ).encode("ascii")
+            await tr.send_file_range(
+                ts.data_path, rng.start, rng.length, head=head,
+                timeout=_TLS_SEND_TIMEOUT_S,
+            )
+        finally:
+            ts.unpin()
+            if span is not None:
+                span.__exit__(None, None, None)

@@ -1,8 +1,8 @@
 """Management plane: config hub, cluster CRUD, model registry, searcher, jobs.
 
-The port of dragonfly2_tpu/manager/'s registry and RPC front (``db``,
-``searcher``, ``jobs``, ``service``, ``config``, ``server``). Its REST front,
-CA, object storage, users/OAuth and console are not ported yet.
+The port of dragonfly2_tpu/manager/, whole: the registry and RPC front
+(``db``, ``searcher``, ``jobs``, ``service``, ``config``, ``server``) and the
+REST front (``rest``, with ``preheat``, ``oauth`` and ``console``).
 
 Reference equivalent: manager/ (manager.go:101, rpcserver/manager_server_v2.go,
 searcher/, job/, models/). Persistence is sqlite3 (stdlib) instead of

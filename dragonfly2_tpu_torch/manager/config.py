@@ -4,8 +4,8 @@ copy of dragonfly2_tpu/manager/config.py.
 ``python -m dragonfly2_tpu_torch.manager.server --config manager.yaml``; flags
 override file values. Secrets fall back to DRAGONFLY_* env vars when absent
 from both file and flags. The schema is the reference's, so one file serves
-either package; ``rest_port`` defaults to off here (the REST front is not
-ported), and the process refuses the keys whose machinery is not ported.
+either package; ``rest_port`` defaults to off here (the reference binds 9201
+when the file names none): the port's manager serves REST only when asked.
 """
 
 from __future__ import annotations

@@ -1,14 +1,17 @@
-"""Manager process entry: RPC + keepalive reaper + job-lease reaper in one
-asyncio loop. The port of dragonfly2_tpu/manager/server.py:
+"""Manager process entry: RPC + REST + reaper in one asyncio loop. The port
+of dragonfly2_tpu/manager/server.py:
 
-    python -m dragonfly2_tpu_torch.manager.server --port 9200 --db /var/lib/df/manager.db
+    python -m dragonfly2_tpu_torch.manager.server --port 9200 --rest-port 9201 \
+        --db /var/lib/df/manager.db
 
 It takes the reference's flags and ``--config`` YAML layering and prints the
-reference's ready line, ``manager ready rpc=<addr> rest=None``: the REST
-front is not ported, so REST is off. Refused with exit 2, naming the
-ROADMAP.md item that ports them: an explicit ``--rest-port`` (flag or
-YAML), ``--metrics-port``, ``--ca-dir``, ``--cert-token``, ``--auth-secret``,
-``--admin-password`` and ``--object-storage-dir``.
+reference's ready line, ``manager ready rpc=<addr> rest=<port>``. The REST
+front (``manager/rest.py``: the registry, users and RBAC, OAuth, buckets,
+preheat jobs and the console) is off unless ``--rest-port`` (or the YAML's
+``rest_port``) asks for it, and open unless ``--auth-secret`` is set, as in
+the reference's dev mode. ``--ca-dir`` turns on the cluster CA, whose
+``issue_certificate`` RPC the bootstrap ``--cert-token`` gates;
+``--metrics-port`` serves the debug server.
 
 Reference equivalent: manager/manager.go:101 (gin REST + gRPC v1/v2 + GC on
 one composition root).
@@ -20,19 +23,16 @@ import argparse
 import asyncio
 import logging
 import os
-import sys
 
 from dragonfly2_tpu_torch.manager.db import Database
 from dragonfly2_tpu_torch.manager.jobs import JobQueue
+from dragonfly2_tpu_torch.manager.rest import start_rest
 from dragonfly2_tpu_torch.manager.service import ManagerService
 from dragonfly2_tpu_torch.rpc.core import RpcServer
 from dragonfly2_tpu_torch.rpc.manager import ManagerRpcAdapter, register_manager
 from dragonfly2_tpu_torch.utils.proc import run_until_signalled
 
 logger = logging.getLogger("manager")
-
-
-_STILL_TO_PORT = "ROADMAP.md §1, 'Still to do' item 4"
 
 
 class ManagerServer:
@@ -42,17 +42,54 @@ class ManagerServer:
         db_path: str = ":memory:",
         host: str = "127.0.0.1",
         port: int = 0,
+        rest_port: int | None = None,
+        metrics_port: int | None = None,
         keepalive_ttl: float = 60.0,
+        ca_dir: str | None = None,
+        cert_token: str | None = None,
+        auth_secret: str | None = None,
+        admin_password: str | None = None,
+        object_storage_dir: str | None = None,
+        object_storage=None,
         searcher: str = "default",
+        ssl=None,
     ):
         self.db = Database(db_path)
         self.service = ManagerService(
             self.db, keepalive_ttl=keepalive_ttl, searcher_spec=searcher
         )
         self.jobs = JobQueue(self.db)
-        self.rpc = RpcServer(host=host, port=port)
-        register_manager(self.rpc, ManagerRpcAdapter(self.service, self.jobs))
-        self.rest_port = None  # the REST front is not ported
+        self.ca = None
+        if ca_dir:
+            from dragonfly2_tpu_torch.security.ca import CertificateAuthority
+
+            self.ca = CertificateAuthority(ca_dir)
+        self.auth_secret = auth_secret
+        # any registry backend instance (fs/s3/oss/obs) may be injected;
+        # object_storage_dir remains the fs convenience path
+        self.object_storage = object_storage
+        if self.object_storage is None and object_storage_dir:
+            from dragonfly2_tpu_torch.objectstorage.backend import LocalFSBackend
+
+            self.object_storage = LocalFSBackend(object_storage_dir)
+        if admin_password and not self.db.find("users", name="admin"):
+            self.service.create_user("admin", admin_password, role="admin")
+            logger.info("bootstrapped admin user")
+        # `ssl`: an ssl.SSLContext (security.ca.server_ssl_context) puts the
+        # manager's control RPC on TLS too. Bootstrap order: construct the
+        # CertificateAuthority on ca_dir first, self-issue the manager's leaf,
+        # build the context, then pass BOTH ca_dir and ssl here — the CA class
+        # reloads the same ca.pem/ca.key, so issuance and serving share one
+        # trust root.
+        self.rpc = RpcServer(host=host, port=port, ssl=ssl)
+        adapter = ManagerRpcAdapter(self.service, self.jobs)
+        adapter.ca = self.ca  # enables issue_certificate over RPC...
+        adapter.cert_token = cert_token  # ...gated by the bootstrap token
+        register_manager(self.rpc, adapter)
+        self.rest_port = rest_port
+        self.metrics_port = metrics_port
+        self._debug = None
+        self._rest_runner = None
         self._reaper: asyncio.Task | None = None
         self._lease_reaper: asyncio.Task | None = None
 
@@ -63,9 +100,21 @@ class ManagerServer:
     async def start(self) -> None:
         self.jobs.requeue_pending()
         await self.rpc.start()
+        if self.rest_port is not None:
+            self._rest_runner, self.rest_port = await start_rest(
+                self.service, self.jobs, host=self.rpc.host, port=self.rest_port,
+                auth_secret=self.auth_secret, ca=self.ca,
+                object_storage=self.object_storage,
+            )
+        if self.metrics_port is not None:
+            from dragonfly2_tpu_torch.observability.server import start_debug_server
+
+            self._debug = await start_debug_server(host=self.rpc.host, port=self.metrics_port)
+            self.metrics_port = self._debug.port
+            logger.info("manager metrics on %s:%d", self.rpc.host, self.metrics_port)
         self._reaper = asyncio.ensure_future(self.service.run_reaper())
         self._lease_reaper = asyncio.ensure_future(self._run_lease_reaper())
-        logger.info("manager rpc on %s", self.rpc.address)
+        logger.info("manager rpc on %s rest on :%s", self.rpc.address, self.rest_port)
 
     async def _run_lease_reaper(self) -> None:
         while True:
@@ -81,14 +130,22 @@ class ManagerServer:
         for t in (self._reaper, self._lease_reaper):
             if t is not None:
                 t.cancel()
+        if self._debug is not None:
+            await self._debug.stop()
+        if self._rest_runner is not None:
+            await self._rest_runner.cleanup()
         await self.rpc.stop()
         self.db.close()
 
 
 async def amain(args: argparse.Namespace) -> None:
     server = ManagerServer(
-        db_path=args.db, host=args.host, port=args.port,
-        keepalive_ttl=args.keepalive_ttl, searcher=args.searcher,
+        db_path=args.db, host=args.host, port=args.port, rest_port=args.rest_port,
+        metrics_port=args.metrics_port, keepalive_ttl=args.keepalive_ttl,
+        ca_dir=args.ca_dir, cert_token=args.cert_token,
+        auth_secret=args.auth_secret, admin_password=args.admin_password,
+        object_storage_dir=args.object_storage_dir,
+        searcher=args.searcher,
     )
     await server.start()
     try:
@@ -101,26 +158,9 @@ async def amain(args: argparse.Namespace) -> None:
         await server.stop()
 
 
-def _refusals(args: argparse.Namespace) -> list[str]:
-    """What this boot asks for that the port does not run yet, one message
-    each; the caller refuses the boot when any is set."""
-    why = {
-        "--rest-port": "the REST front (manager/rest.py)",
-        "--metrics-port": "the debug and metrics server (observability/server.py)",
-        "--ca-dir": "the cluster CA (security/)",
-        "--cert-token": "certificate issuance (security/)",
-        "--auth-secret": "REST auth (manager/rest.py, security/)",
-        "--admin-password": "users and OAuth (manager/oauth.py)",
-        "--object-storage-dir": "object storage (objectstorage/)",
-    }
-    return [
-        f"{flag}: needs {what}, not ported yet ({_STILL_TO_PORT})"
-        for flag, what in why.items()
-        if getattr(args, flag[2:].replace("-", "_")) is not None
-    ]
-
-
 def main() -> None:
+    import sys
+
     from dragonfly2_tpu_torch.manager.config import ManagerYaml
     from dragonfly2_tpu_torch.utils.config import ConfigError, load_config
 
@@ -137,12 +177,10 @@ def main() -> None:
     p.add_argument("--db", default=cfg.db)
     p.add_argument("--host", default=cfg.host)
     p.add_argument("--port", type=int, default=cfg.port)
-    p.add_argument("--rest-port", type=int, default=cfg.rest_port,
-                   help="refused: the REST front is not ported yet")
-    p.add_argument("--metrics-port", type=int, default=cfg.metrics_port,
-                   help="refused: the debug server is not ported yet")
+    p.add_argument("--rest-port", type=int, default=cfg.rest_port)
+    p.add_argument("--metrics-port", type=int, default=cfg.metrics_port)
     p.add_argument("--ca-dir", default=cfg.security.ca_dir,
-                   help="refused: the cluster CA is not ported yet")
+                   help="enable the cluster CA (cert issuance)")
     p.add_argument("--cert-token",
                    default=cfg.security.cert_token or os.environ.get("DRAGONFLY_CERT_TOKEN"),
                    help="bootstrap token gating RPC certificate issuance")
@@ -161,22 +199,15 @@ def main() -> None:
                    help="per-component rotating log files (console only when unset)")
     p.add_argument("-v", "--verbose", action="store_true")
     args = p.parse_args()
-    refused = _refusals(args)
-    for name in ("otlp_file", "otlp_endpoint", "trace_file"):
-        if getattr(cfg.tracing, name):
-            refused.append(
-                f"tracing.{name}: the span exporters are not ported yet "
-                "(ROADMAP.md §1, 'Left out': tracing exporters)"
-            )
-    if refused:
-        for msg in refused:
-            print(f"manager: {msg}", file=sys.stderr)
-        raise SystemExit(2)
     from dragonfly2_tpu_torch.observability.tracing import configure_default_tracer
     from dragonfly2_tpu_torch.utils.dflog import setup_logging
 
     setup_logging(args.log_dir, level=logging.DEBUG if args.verbose else logging.INFO)
-    configure_default_tracer("dragonfly-manager", sample_rate=cfg.tracing.sample_rate)
+    configure_default_tracer(
+        "dragonfly-manager",
+        otlp_file=cfg.tracing.otlp_file, otlp_endpoint=cfg.tracing.otlp_endpoint,
+        trace_file=cfg.tracing.trace_file, sample_rate=cfg.tracing.sample_rate,
+    )
     asyncio.run(amain(args))
 
 

@@ -1,7 +1,7 @@
 """Manager business logic: cluster CRUD, instance registry, models, configs.
 
-The port's own copy of dragonfly2_tpu/manager/service.py. All of it but the users/OAuth methods, which only the
-REST front calls and which come with it.
+The port's own copy of dragonfly2_tpu/manager/service.py, whole: the users and
+OAuth methods serve the REST front (``manager/rest.py``).
 
 Reference equivalent: manager/rpcserver/manager_server_v2.go:95-746 (the gRPC
 surface schedulers/daemons use: GetScheduler, ListSchedulers, UpdateScheduler,
@@ -707,3 +707,144 @@ class ManagerService:
 
     def get_config(self, name: str) -> Optional[dict]:
         return self.db.find_one("configs", name=name)
+
+    # ---- users + auth (ref manager/handlers/user.go + middlewares/jwt.go) ----
+
+    @staticmethod
+    def _hash_password(password: str, salt: bytes | None = None) -> str:
+        import hashlib
+        import os as _os
+
+        salt = salt or _os.urandom(16)
+        digest = hashlib.scrypt(password.encode(), salt=salt, n=2**14, r=8, p=1)
+        return salt.hex() + "$" + digest.hex()
+
+    @classmethod
+    def _check_password(cls, password: str, stored: str) -> bool:
+        import hmac as _hmac
+
+        try:
+            salt_hex, _ = stored.split("$", 1)
+        except ValueError:
+            return False
+        return _hmac.compare_digest(
+            cls._hash_password(password, bytes.fromhex(salt_hex)), stored
+        )
+
+    def create_user(
+        self, name: str, password: str, *, role: str = "guest", email: str = ""
+    ) -> dict:
+        if self.db.find_one("users", name=name) is not None:
+            raise ValueError(f"user {name!r} exists")
+        row_id = self.db.insert(
+            "users", name=name, email=email,
+            password_hash=self._hash_password(password), role=role,
+        )
+        return self._public_user(self.db.get("users", row_id))
+
+    def verify_user(self, name: str, password: str) -> Optional[dict]:
+        row = self.db.find_one("users", name=name)
+        if row is None or row.get("state") != "enable":
+            return None
+        if not self._check_password(password, row.get("password_hash", "")):
+            return None
+        return self._public_user(row)
+
+    def list_users(self) -> list[dict]:
+        return [self._public_user(r) for r in self.db.find("users")]
+
+    def update_user_role(self, name: str, role: str) -> bool:
+        return self.db.update_where("users", {"name": name}, role=role) > 0
+
+    def delete_user(self, name: str) -> bool:
+        row = self.db.find_one("users", name=name)
+        return row is not None and self.db.delete("users", row["id"])
+
+    @staticmethod
+    def _public_user(row: dict) -> dict:
+        return {k: v for k, v in row.items() if k != "password_hash"}
+
+    def upsert_oauth_user(self, provider: str, login: str, *, email: str = "") -> dict:
+        """Provision/refresh a user signed in via an OAuth provider (ref
+        handlers/oauth.go callback path).
+
+        The stored name is NAMESPACED as "<provider>/<login>": a provider
+        login can therefore never collide with (or take over) a local
+        account — an attacker owning the IdP login "admin" gets the fresh
+        guest account "github/admin", not the bootstrapped admin. Roles are
+        preserved per namespaced account; disabled accounts are refused the
+        same way password sign-in refuses them."""
+        name = f"{provider}/{login}"
+        row = self.db.find_one("users", name=name)
+        if row is None:
+            row_id = self.db.insert("users", name=name, email=email, role="guest")
+            row = self.db.get("users", row_id)
+        else:
+            if row.get("state") != "enable":
+                raise ValueError(f"user {name!r} is disabled")
+            if email and row.get("email") != email:
+                self.db.update("users", row["id"], email=email)
+                row = self.db.get("users", row["id"])
+        return self._public_user(row)
+
+    # ---- oauth provider registry (ref manager/models/oauth.go) ----
+
+    _OAUTH_FIELDS = ("bio", "client_id", "client_secret", "auth_url", "token_url",
+                     "user_info_url", "scopes", "redirect_url")
+
+    _OAUTH_REQUIRED = ("client_id", "client_secret", "auth_url", "token_url")
+
+    @classmethod
+    def _validate_oauth_fields(cls, fields: dict[str, Any]) -> None:
+        unknown = set(fields) - set(cls._OAUTH_FIELDS)
+        if unknown:
+            raise ValueError(f"unknown oauth fields: {sorted(unknown)}")
+        for req in cls._OAUTH_REQUIRED:
+            if req in fields and not fields[req]:
+                raise ValueError(f"oauth field {req} must not be empty")
+        scopes = fields.get("scopes")
+        if scopes is not None and (
+            not isinstance(scopes, list) or not all(isinstance(s, str) for s in scopes)
+        ):
+            raise ValueError("scopes must be a list of strings")
+
+    def create_oauth(self, name: str, **fields: Any) -> dict:
+        if self.db.find_one("oauth", name=name) is not None:
+            raise ValueError(f"oauth provider {name!r} exists")
+        self._validate_oauth_fields(fields)
+        for req in self._OAUTH_REQUIRED:
+            if not fields.get(req):
+                raise ValueError(f"oauth provider requires {req}")
+        row_id = self.db.insert("oauth", name=name, **fields)
+        return self._public_oauth(self.db.get("oauth", row_id))
+
+    def get_oauth(self, oauth_id: int, *, with_secret: bool = False) -> Optional[dict]:
+        row = self.db.get("oauth", oauth_id)
+        if row is None:
+            return None
+        return dict(row) if with_secret else self._public_oauth(row)
+
+    def get_oauth_by_name(self, name: str, *, with_secret: bool = False) -> Optional[dict]:
+        row = self.db.find_one("oauth", name=name)
+        if row is None:
+            return None
+        return dict(row) if with_secret else self._public_oauth(row)
+
+    def list_oauth(self) -> list[dict]:
+        return [self._public_oauth(r) for r in self.db.find("oauth")]
+
+    def update_oauth(self, oauth_id: int, **fields: Any) -> Optional[dict]:
+        self._validate_oauth_fields(fields)
+        existing = self.db.get("oauth", oauth_id)
+        if existing is None:
+            return None
+        if fields:
+            self.db.update("oauth", oauth_id, **fields)
+        return self._public_oauth(self.db.get("oauth", oauth_id))
+
+    def delete_oauth(self, oauth_id: int) -> bool:
+        return self.db.delete("oauth", oauth_id)
+
+    @staticmethod
+    def _public_oauth(row: dict) -> dict:
+        return {k: v for k, v in row.items() if k != "client_secret"}

@@ -178,7 +178,7 @@ def default_rules() -> list[AlertRule]:
                         "active; see scheduler_degradation_level rung and "
                         "README 'Overload & degradation')",
         ),
-        AlertRule(  # dflint: disable=DF030 the port's daemon/ (not ported yet) declares it; the rule set stays the reference's
+        AlertRule(
             name="piece_tls_handshake_failures",
             kind="rate",
             metric="dragonfly_dfdaemon_piece_tls_handshake_failures_total",

@@ -1,12 +1,10 @@
 """Typed metrics with Prometheus text-format exposition.
 
-The port's own copy of the counter, gauge, histogram and registry of
-dragonfly2_tpu/observability/metrics.py: what the trainer's
-``dragonfly_train_*`` families and the scheduler's ``dragonfly_scheduler_*``
-and ``dragonfly_loop_*`` families need, and what the time-series recorder
-(observability/timeseries.py) walks. The HTTP handler is not copied: the
-port serves no /metrics, and a reference scheduler's /metrics renders only
-the reference's registry.
+The port's own copy of the counter, gauge, histogram, registry and
+``/metrics`` handler of dragonfly2_tpu/observability/metrics.py. The port's
+services render the port's registry on their debug server's ``/metrics``
+(observability/server.py); a reference process renders only the
+reference's.
 
 The reference exposes Prometheus counters/gauges/histograms per service on a
 dedicated metrics port (scheduler/metrics/metrics.go:46-179,
@@ -302,3 +300,19 @@ _default = MetricsRegistry()
 
 def default_registry() -> MetricsRegistry:
     return _default
+
+
+def metrics_http_handler(registry: MetricsRegistry | None = None):
+    """aiohttp handler for GET /metrics (text/plain; version=0.0.4)."""
+    from aiohttp import web
+
+    reg = registry or _default
+
+    async def handler(_req):
+        return web.Response(
+            text=reg.render_text(),
+            content_type="text/plain",
+            charset="utf-8",
+        )
+
+    return handler

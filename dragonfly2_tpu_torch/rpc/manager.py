@@ -1,8 +1,8 @@
 """Manager RPC adapters: wire client + server over rpc.core.
 
-The port's own copy of dragonfly2_tpu/rpc/manager.py, whole but for the CA:
-``issue_certificate`` answers as the reference's does on a manager with no
-CA configured, ``unavailable`` (the port has no ``security/`` yet).
+The port's own copy of dragonfly2_tpu/rpc/manager.py, whole: with a CA
+(``--ca-dir``) ``issue_certificate`` issues a leaf to a caller that presents
+the bootstrap token (``--cert-token``); with none it answers ``unavailable``.
 
 Reference equivalent: pkg/rpc/manager/{client,server} (client_v1/v2: the
 GetScheduler/ListSchedulers/UpdateScheduler/KeepAlive surface schedulers and
@@ -179,11 +179,27 @@ class ManagerRpcAdapter:
 
     async def issue_certificate(self, p: dict) -> dict:
         """Issue a leaf cert for a cluster service (ref pkg/rpc/security).
-        The port has no CA, so this answers as a manager with no CA
-        configured does."""
+        `ca` + `cert_token` are wired by the server when --ca-dir is set;
+        callers must present the cluster bootstrap token — the RPC plane has
+        no user auth, and an open issuance endpoint would hand the mTLS trust
+        root to any network peer."""
+        import hmac as _hmac
+
         from dragonfly2_tpu_torch.rpc.core import RpcError
 
-        raise RpcError("manager has no CA configured", code="unavailable")
+        ca = getattr(self, "ca", None)
+        if ca is None:
+            raise RpcError("manager has no CA configured", code="unavailable")
+        token = getattr(self, "cert_token", None)
+        if not token:
+            raise RpcError(
+                "certificate issuance over RPC requires --cert-token on the manager",
+                code="permission_denied",
+            )
+        if not _hmac.compare_digest(str(p.get("token", "")), token):
+            raise RpcError("bad bootstrap token", code="permission_denied")
+        issued = ca.issue(p.get("name", "service"), sans=tuple(p.get("sans", ())))
+        return issued.to_dict()
 
 
 def register_manager(server: RpcServer, adapter: ManagerRpcAdapter) -> None:

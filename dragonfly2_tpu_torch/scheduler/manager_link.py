@@ -12,8 +12,10 @@ The port's own copy of dragonfly2_tpu/scheduler/manager_link.py:
   path, locally rejected versions, post-swap health and rollback to the warm
   previous bundle, the drift reference carried on the bundle, draining).
   The faultline ``model.swap`` point fires where the reference fires it.
-  The port has no seed daemon yet: a preheat job completes with the
-  reference's failure, ``no seed peers available``.
+  A preheat job triggers the seed peers the manager lists (the port's seed
+  daemon answers ``trigger_seed``) and completes once they hold the task;
+  with no seed peer registered it fails with the reference's ``no seed peers
+  available``.
 - The loader, as plain functions with the reference's signatures, so that a
   test can put them in place of the reference link's static methods (the
   link's own static methods call them):

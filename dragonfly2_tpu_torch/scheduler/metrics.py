@@ -11,9 +11,9 @@ brownout ladder, and ``ServiceMetrics``, the registry-scoped twins one
 manager-outage families and the federation loop's. ``ML_SERVING_MODE`` has a
 ``torch`` label of its own beside the reference's (the port's GNNScorer).
 
-The port serves no /metrics, and a reference scheduler's /metrics renders only
-the reference's registry: these families are read in process
-(``ML_SERVING_MODE.labels(mode=...).value``), not scraped.
+The port's scheduler renders them on its debug server's ``/metrics``
+(``--metrics-port``); a reference scheduler's /metrics renders only the
+reference's registry.
 """
 
 from __future__ import annotations

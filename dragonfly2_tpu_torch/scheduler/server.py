@@ -22,11 +22,10 @@ model watch with shadow scoring, promotion and health rollback);
 ``--federation-peers`` takes a static list, or ``auto`` to follow the
 manager's address book (refreshed every 60 s, as the reference does). The
 time-series recorder and the alert engine always start: the stats frames
-read them.
-
-Refused, never ignored (exit 2, naming the ROADMAP.md item that ports
-them): ``--metrics-port`` (the debug server) and a ``tracing:`` section that
-names an exporter.
+read them. ``--metrics-port`` serves the debug server (``/metrics`` renders
+the port's registry, ``/debug/decisions`` this scheduler's decision
+records), and a ``tracing:`` section exports spans to a JSON-lines file, an
+OTLP file or an OTLP endpoint.
 """
 
 from __future__ import annotations
@@ -34,7 +33,6 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
-import sys
 
 from dragonfly2_tpu_torch.rpc.scheduler import serve_scheduler
 from dragonfly2_tpu_torch.scheduler.service import SchedulerService
@@ -44,8 +42,6 @@ from dragonfly2_tpu_torch.utils.proc import run_until_signalled
 
 logger = logging.getLogger("scheduler")
 
-_STILL_TO_PORT = "ROADMAP.md §1, 'Still to port'"
-
 
 async def run_scheduler(
     *,
@@ -53,6 +49,7 @@ async def run_scheduler(
     port: int = 9000,
     telemetry_dir: str | None = None,
     evaluator: str = "base",
+    metrics_port: int | None = None,
     gc_interval: float = 10.0,
     manager_addr: str | None = None,
     keepalive_interval: float | None = None,
@@ -115,6 +112,12 @@ async def run_scheduler(
     recorder.start()
     alert_engine = default_engine()
     alert_engine.start()
+    debug = None
+    if metrics_port is not None:
+        from dragonfly2_tpu_torch.observability.server import start_debug_server
+
+        debug = await start_debug_server(host=host, port=metrics_port, decisions=service)
+        logger.info("scheduler metrics on %s:%d", host, debug.port)
 
     link = None
     if manager_addr:
@@ -200,6 +203,8 @@ async def run_scheduler(
         loop_monitor.stop()
         alert_engine.stop()
         recorder.stop()
+        if debug is not None:
+            await debug.stop()
         if federation is not None:
             await federation.stop()
         if announcer is not None:
@@ -226,25 +231,9 @@ def _sweep(service: SchedulerService) -> None:
         logger.info("gc removed %s", removed)
 
 
-def _refusals(args: argparse.Namespace, cfg) -> list[str]:
-    """What this boot asks for that the port does not run yet, one message
-    each; the caller refuses the boot when any is set."""
-    out = []
-    if args.metrics_port is not None:
-        out.append(
-            "--metrics-port: needs the debug and metrics server, not ported yet "
-            f"({_STILL_TO_PORT}: observability/server.py)"
-        )
-    for name in ("otlp_file", "otlp_endpoint", "trace_file"):
-        if getattr(cfg.tracing, name):
-            out.append(
-                f"tracing.{name}: the span exporters are not ported yet "
-                f"({_STILL_TO_PORT}: tracing exporters); the port records spans in process only"
-            )
-    return out
-
-
 def main() -> None:
+    import sys
+
     from dragonfly2_tpu_torch.scheduler.config import SchedulerYaml
     from dragonfly2_tpu_torch.utils.config import ConfigError, load_config
 
@@ -264,8 +253,7 @@ def main() -> None:
     ap.add_argument("--host", default=cfg.host)
     ap.add_argument("--port", type=int, default=cfg.port)
     ap.add_argument("--telemetry-dir", default=cfg.telemetry_dir)
-    ap.add_argument("--metrics-port", type=int, default=cfg.metrics_port,
-                    help="refused: the debug server is not ported yet")
+    ap.add_argument("--metrics-port", type=int, default=cfg.metrics_port)
     ap.add_argument("--evaluator", default=cfg.evaluator,
                     help='"base", "ml", or "plugin:pkg.mod:attr"')
     ap.add_argument("--manager", default=cfg.manager, help="manager address host:port")
@@ -294,22 +282,22 @@ def main() -> None:
     args = ap.parse_args()
     if args.evaluator not in ("base", "ml") and not args.evaluator.startswith("plugin:"):
         ap.error(f"--evaluator {args.evaluator!r}: want 'base', 'ml', or 'plugin:pkg.mod:attr'")
-    refused = _refusals(args, cfg)
-    if refused:
-        for msg in refused:
-            print(f"scheduler: {msg}", file=sys.stderr)
-        raise SystemExit(2)
     from dragonfly2_tpu_torch.observability.tracing import configure_default_tracer
     from dragonfly2_tpu_torch.utils.dflog import setup_logging
 
     setup_logging(args.log_dir, level=logging.DEBUG if args.verbose else logging.INFO)
-    configure_default_tracer("dragonfly-scheduler", sample_rate=cfg.tracing.sample_rate)
+    configure_default_tracer(
+        "dragonfly-scheduler",
+        otlp_file=cfg.tracing.otlp_file, otlp_endpoint=cfg.tracing.otlp_endpoint,
+        trace_file=cfg.tracing.trace_file, sample_rate=cfg.tracing.sample_rate,
+    )
     asyncio.run(
         run_scheduler(
             host=args.host,
             port=args.port,
             telemetry_dir=args.telemetry_dir,
             evaluator=args.evaluator,
+            metrics_port=args.metrics_port,
             gc_interval=cfg.gc.interval,
             manager_addr=args.manager,
             keepalive_interval=args.keepalive_interval,

@@ -916,9 +916,9 @@ class SchedulerService:
         """Recorded scoring decisions + the drift/serving context `dfml
         explain` replays them against (served over the `decision_records`
         RPC). ``fallbacks`` adds to the reference's answer the process's
-        ML_BASE_FALLBACK_TOTAL by reason: the port has no /metrics yet
-        (ROADMAP.md §1, the debug server), and a round that fell back is
-        recorded without its reason."""
+        ML_BASE_FALLBACK_TOTAL by reason (also on the debug server's
+        /metrics): a round that fell back is recorded without its
+        reason."""
         return {
             "recorder": self.decisions.stats(),
             "records": self.decisions.snapshot(

@@ -482,3 +482,80 @@ def test_a_daemon_serving_the_proxy_runs_no_cuda_context(card, tmp_path):
         for p in procs:
             p.wait(timeout=30)
             p.stdout.close()
+
+
+def test_a_daemon_on_the_mtls_piece_plane_runs_no_cuda_context(card, tmp_path):
+    """The port's daemon process booted with --data-tls-dir, --metrics-port
+    and a span file, beside this process's CUDA context, serves its piece
+    server over mutual TLS and its /metrics, writes its spans, and maps no
+    CUDA driver library and no NVIDIA device file."""
+    import os
+    import re
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from dragonfly2_tpu_torch.observability.tracing import Tracer
+    from dragonfly2_tpu_torch.rpc.core import RpcClient
+    from dragonfly2_tpu_torch.security.ca import CertificateAuthority, write_issued
+    from dragonfly2_tpu_torch.security.transport import data_client_ssl_context
+    from dragonfly2_tpu_torch.utils.proc import ready_address
+
+    torch.zeros(1, device=card)
+    assert "libcuda" in pathlib.Path("/proc/self/maps").read_text()
+    certs = write_issued(CertificateAuthority(tmp_path / "ca").issue("d", sans=["127.0.0.1"]), tmp_path / "certs")
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    traced = {"DRAGONFLY_TRACE_FILE": str(tmp_path / "spans.jsonl"), "DRAGONFLY_TRACE_SAMPLE": "1"}
+    procs = []
+
+    def spawn(args, name, extra=None):
+        with open(tmp_path / f"{name}.log", "w") as err:
+            p = subprocess.Popen([sys.executable, "-m", *args], cwd=tmp_path, env={**env, **(extra or {})},
+                                 stdout=subprocess.PIPE, stderr=err, text=True)
+        procs.append(p)
+        return p
+
+    try:
+        deadline = time.monotonic() + 60
+        sched = ready_address(spawn(["dragonfly2_tpu_torch.scheduler.server", "--port", "0"], "scheduler"),
+                              "SCHEDULER_READY", deadline)
+        d = spawn(["dragonfly2_tpu_torch.daemon.server", "--scheduler", sched, "--storage", str(tmp_path / "d"),
+                   "--sock", str(tmp_path / "d.sock"), "--data-tls-dir", str(tmp_path / "certs"),
+                   "--metrics-port", "0"], "daemon", traced)
+        assert ready_address(d, "DAEMON_READY", deadline) == str(tmp_path / "d.sock")
+        log = (tmp_path / "daemon.log").read_text()
+        metrics = int(re.search(r"daemon metrics on [\d.]+:(\d+)", log).group(1))
+        upload = int(re.search(r"upload server on [\d.]+:(\d+) \(mTLS, raw\)", log).group(1))
+        with urllib.request.urlopen(f"http://127.0.0.1:{metrics}/metrics", timeout=30) as r:
+            assert "dragonfly_dfdaemon_piece_tls_handshakes_total" in r.read().decode()
+        ctx = data_client_ssl_context(certs["ca"], certs["cert"], certs["key"])
+        with socket.create_connection(("127.0.0.1", upload), timeout=30) as raw, ctx.wrap_socket(raw) as s:
+            assert s.version() == "TLSv1.2"
+            s.sendall(b"GET /nothing HTTP/1.1\r\nHost: x\r\n\r\n")
+            assert s.recv(12).startswith(b"HTTP/1.1 4")
+
+
+        async def traced_ping():
+            with Tracer().span("probe"):  # the call ships its context; the daemon continues it
+                c = RpcClient(str(tmp_path / "d.sock"), retries=0)
+                try:
+                    return await c.call("_ping")
+                finally:
+                    await c.close()
+
+        assert asyncio.run(asyncio.wait_for(traced_ping(), 30)) == "pong"
+        maps = pathlib.Path(f"/proc/{d.pid}/maps").read_text()
+        fds = [os.readlink(f) for f in pathlib.Path(f"/proc/{d.pid}/fd").iterdir()]
+        assert "libcuda" not in maps and "libcudart" not in maps
+        assert not [f for f in fds if "nvidia" in f]
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.wait(timeout=30)
+            p.stdout.close()
+    spans = [json.loads(ln) for ln in (tmp_path / "spans.jsonl").read_text().splitlines()]
+    assert [s["name"] for s in spans] == ["rpc.server"] and spans[0]["attrs"]["method"] == "_ping"

@@ -17,8 +17,11 @@
   leaf, a tunnel, the SNI proxy, the gateway on the fs and s3 backends); a
   daemon booted with all of them and driven through each has loaded no
   torch.
-- The flags and YAML sections whose machinery the port has not ported exit 2
-  naming the ROADMAP.md item.
+- The flags and the YAML section the port once refused boot a serving
+  daemon: the mTLS piece plane (``--data-tls-dir``, ``--piece-cipher``),
+  ``--vsock-port``, ``--metrics-port`` and a ``tracing:`` exporter; a bad
+  ``--piece-cipher`` exits 2 as a process; ``dfget --trace-file`` records
+  its trace, the daemon's spans joining it.
 
 One port scheduler process, one port daemon and one reference daemon serve
 the module; every process has a deadline of 60 s.
@@ -84,10 +87,13 @@ def _tracers_as_found():
     from dragonfly2_tpu.observability import tracing as ref_tracing
     from dragonfly2_tpu_torch.observability import tracing as port_tracing
 
-    saved = [(t, t.service, t.sample_rate) for t in (ref_tracing.default_tracer(), port_tracing.default_tracer())]
+    saved = [(t, t.service, t.sample_rate, t.path)
+             for t in (ref_tracing.default_tracer(), port_tracing.default_tracer())]
     yield
-    for t, service, rate in saved:
-        t.service, t.sample_rate = service, rate
+    for t, service, rate, path in saved:
+        if t.path != path:
+            t.close()  # flushes and closes the span file a test named
+        t.service, t.sample_rate, t.path = service, rate, path
 
 
 def _env() -> dict:
@@ -394,38 +400,85 @@ REFUSED = [
 ]
 
 
-def _yaml(tmp_path: Path) -> None:
-    (tmp_path / "tracing.yaml").write_text("tracing:\n  trace_file: /tmp/spans.jsonl\n")
+def _certs(tmp_path: Path) -> Path:
+    """One leaf for 127.0.0.1 from a port CA, in --data-tls-dir's layout."""
+    from dragonfly2_tpu_torch.security.ca import CertificateAuthority, write_issued
+
+    ca = CertificateAuthority(tmp_path / "ca")
+    write_issued(ca.issue("daemon", sans=["127.0.0.1"]), tmp_path / "certs")
+    return tmp_path / "certs"
+
+
+def _scrape(port: int) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        return r.read().decode()
 
 
 @pytest.mark.parametrize("args,item", REFUSED, ids=[" ".join(a) for a, _ in REFUSED])
-def test_flags_the_port_has_not_ported_are_refused(args, item, tmp_path):
-    _yaml(tmp_path)
-    cwd = os.getcwd()
-    os.chdir(tmp_path)
+def test_flags_the_port_has_not_ported_are_refused(cluster, args, item, tmp_path):
+    """Once refused with exit code 2, now ported: each boots a daemon that
+    serves what the flag turned on (the mTLS piece server with its cipher,
+    the vsock listener, the debug server, the span file)."""
+    (tmp_path / "tracing.yaml").write_text(f"tracing:\n  trace_file: {tmp_path / 'spans.jsonl'}\n"
+                                           "  sample_rate: 1.0\n")
+    certs = _certs(tmp_path)
+    args = list(args) + (["--data-tls-dir", str(certs)] if args[0] == "--piece-cipher" else [])
+    if args[0] == "--vsock-port":
+        # a free vsock port: the host's kernel may hold this one already
+        from dragonfly2_tpu_torch.rpc.core import vsock_socket
+
+        with vsock_socket() as s:
+            import socket as socketlib
+
+            s.bind((socketlib.VMADDR_CID_ANY, socketlib.VMADDR_PORT_ANY))
+            args[1] = str(s.getsockname()[1])
+    procs: list[subprocess.Popen] = []
     try:
-        rc, out, err = cli(daemon_server.main, ["--scheduler", "127.0.0.1:9", "--storage", "store",
-                                                "--sock", "d.sock", *args], prog="daemon", sys_argv=True)
+        d = _daemon(PORT_DAEMON, tmp_path, "flag-d", cluster["scheduler"], procs, tuple(args))
+        log = d["log"].read_text()
+        if item == "DataPlaneTls":
+            want = "aes-gcm" if "--piece-cipher" in args else ""
+            assert f"data-plane mTLS on: cipher={want}" in log and "(mTLS, raw)" in log, log[-2000:]
+        elif item == "rpc/core.py":
+            assert f"daemon vsock rpc on vsock://2:{args[1]}" in log, log[-2000:]
+        elif item == "observability/server.py":
+            m = re.search(r"daemon metrics on [\d.]+:(\d+)", log)
+            assert m, log[-2000:]
+            assert "# TYPE dragonfly_dfdaemon_piece_tls_handshakes_total counter" in _scrape(int(m.group(1)))
     finally:
-        os.chdir(cwd)
-    assert rc == 2
-    assert "ROADMAP.md" in err and item in err, err
-    assert "DAEMON_READY" not in out and not (tmp_path / "store").exists()
+        _stop(procs)
+    assert procs[0].returncode == 0, d["log"].read_text()[-2000:]
 
 
 def test_a_refused_flag_exits_2_as_a_process(tmp_path):
+    """A cipher outside the data plane's two is refused with exit code 2."""
     p = subprocess.run([*PORT_DAEMON, "--scheduler", "127.0.0.1:9", "--storage", str(tmp_path / "s"),
-                        "--sock", str(tmp_path / "d.sock"), "--data-tls-dir", str(tmp_path)],
+                        "--sock", str(tmp_path / "d.sock"), "--data-tls-dir", str(tmp_path),
+                        "--piece-cipher", "rc4"],
                        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=DEADLINE_S)
     assert p.returncode == 2
-    assert "ROADMAP.md" in p.stderr and "security/transport.py" in p.stderr
-    assert "DAEMON_READY" not in p.stdout
+    assert "--piece-cipher" in p.stderr and "rc4" in p.stderr, p.stderr
+    assert "DAEMON_READY" not in p.stdout and not (tmp_path / "s").exists()
 
 
-def test_dfget_refuses_a_trace_file(tmp_path):
-    rc, out, err = cli(dfget.main, ["http://127.0.0.1:9/x", "-O", str(tmp_path / "x"), "--trace-file",
-                                    str(tmp_path / "t.jsonl"), "--no-spawn"])
-    assert rc == 2 and "ROADMAP.md" in err and out == ""
+def test_dfget_refuses_a_trace_file(cluster, tmp_path):
+    """Once refused with exit code 2, now ported: ``--trace-file`` records
+    the download's ``dfget.download`` root, and the daemon's RPC server span
+    continues its trace."""
+    from dragonfly2_tpu_torch.observability.tracing import default_tracer
+
+    url = cluster["origin"].add("traced.bin", _payload(31, 1 << 20))
+    rc, out, err = cli(dfget.main, [url, "-O", str(tmp_path / "x"), "--trace-file", str(tmp_path / "t.jsonl"),
+                                    "--sock", cluster["port"]["sock"], "--no-spawn"])
+    assert rc == 0, err
+    default_tracer().close()
+    spans = [json.loads(ln) for ln in (tmp_path / "t.jsonl").read_text().splitlines()]
+    (root,) = [s for s in spans if s["name"] == "dfget.download"]
+    assert root["parent_id"] == "" and root["attrs"]["url"] == url and root["status"] == "ok"
+    client = [s for s in spans if s["name"] == "rpc.client"]
+    assert client and all(s["trace_id"] == root["trace_id"] for s in client)
 
 
 # ---------------------------------------------------------------------------
@@ -630,3 +683,42 @@ def test_a_daemon_serving_the_whole_front_loads_no_torch(cluster, tmp_path):
         _stop(procs)
     assert d["proc"].returncode == 0, d["log"].read_text()[-2000:]
     assert out.strip() == "LOADED", out
+
+
+def test_a_daemon_with_every_secure_and_observable_flag_loads_no_torch(cluster, tmp_path):
+    """--data-tls-dir, --piece-cipher, --vsock-port, --metrics-port and a
+    tracing: exporter at once: the daemon serves a download over the mTLS
+    piece plane (to a second such daemon) and has loaded no torch."""
+    from dragonfly2_tpu_torch.rpc.core import vsock_socket
+
+    certs = _certs(tmp_path)
+    (tmp_path / "tracing.yaml").write_text(f"tracing:\n  trace_file: {tmp_path / 'spans.jsonl'}\n")
+    procs: list[subprocess.Popen] = []
+    try:
+        ds = []
+        for name in ("tls-a", "tls-b"):
+            with vsock_socket() as s:
+                import socket as socketlib
+
+                s.bind((socketlib.VMADDR_CID_ANY, socketlib.VMADDR_PORT_ANY))
+                vport = s.getsockname()[1]
+            ds.append(_daemon([sys.executable, "-c", _PROBE], tmp_path, name, cluster["scheduler"], procs,  # dflint: disable=DF026 one daemon process per loop turn
+                              ("--data-tls-dir", str(certs), "--piece-cipher", "chacha20", "--vsock-port",
+                               str(vport), "--metrics-port", "0", "--config", "tracing.yaml")))
+        data = _payload(17, 9 << 20)
+        url = cluster["origin"].add("secure.bin", data)
+        for d, out in zip(ds, ("a.bin", "b.bin")):
+            rc, _, err = cli(dfget.main, [url, "-O", str(tmp_path / out), "--sock", d["sock"], "--no-spawn"])
+            assert rc == 0, err
+            assert (tmp_path / out).read_bytes() == data
+        done = re.search(r"task done: (\d+) piece\(s\) from parents \{.+\}, 0 byte\(s\) from source",
+                         ds[1]["log"].read_text())
+        assert done and int(done.group(1)) == 3, ds[1]["log"].read_text()[-2000:]
+        outs = []
+        for d in ds:
+            d["proc"].send_signal(signal.SIGTERM)
+            outs.append(d["proc"].communicate(timeout=DEADLINE_S)[0])
+    finally:
+        _stop(procs)
+    assert [d["proc"].returncode for d in ds] == [0, 0]
+    assert [o.strip() for o in outs] == ["LOADED", "LOADED"], outs

@@ -19,8 +19,9 @@ process) against the reference's.
 - The process: ``python -m dragonfly2_tpu_torch.manager.server --port 0``
   prints ``manager ready rpc=<addr> rest=None``, serves a client, keeps its
   registry across a restart on the same database file and stops on SIGTERM
-  with exit code 0; the flags whose machinery is not ported exit 2 naming
-  the ROADMAP.md item.
+  with exit code 0; the flags it once refused (REST, metrics, the CA, the
+  cert token, auth, the admin user, object storage, a tracing exporter) boot
+  a serving manager that has loaded no torch.
 
 Every subprocess has a deadline of 120 s or less.
 """
@@ -414,6 +415,53 @@ def test_the_process_serves_keeps_its_registry_and_stops_on_sigterm(run, tmp_pat
         assert _stop(p) == 0
 
 
+_PROBE = """
+import runpy, sys
+from dragonfly2_tpu_torch.utils import proc
+
+serve = proc.run_until_signalled
+
+async def probed(ready_event=None, on_ready=None):
+    def report():
+        on_ready()
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "torch", "dragonfly2_tpu"))
+        print("LOADED " + ",".join(bad), flush=True)
+    await serve(ready_event, report)
+
+proc.run_until_signalled = probed
+sys.argv = ["manager", *sys.argv[1:]]
+runpy.run_module("dragonfly2_tpu_torch.manager.server", run_name="__main__")
+"""
+
+
+def _check_booted(item: str, rest: str, tmp_path: Path, addr: str) -> None:
+    """What the flag of ``item`` turned on answers."""
+    import json
+    import re
+    import urllib.request
+
+    if item == "manager/rest.py":
+        with urllib.request.urlopen(f"http://127.0.0.1:{int(rest)}/healthz", timeout=10) as r:
+            assert json.loads(r.read()) == {"status": "ok"}
+    elif item == "observability/server.py":
+        m = re.search(r"manager metrics on [\d.]+:(\d+)", (tmp_path / "manager.err").read_text())
+        assert m, (tmp_path / "manager.err").read_text()[-2000:]
+        with urllib.request.urlopen(f"http://127.0.0.1:{m.group(1)}/healthz", timeout=10) as r:
+            assert json.loads(r.read()) == {"status": "ok"}
+    elif item == "security/":
+        async def issue():
+            c = RemoteManagerClient(addr, retries=0)
+            try:
+                with pytest.raises(RpcError) as e:
+                    await c.issue_certificate("svc", token="wrong")
+                return e.value.code
+            finally:
+                await c.close()
+
+        # a CA with no token refuses, a token with no CA has none to issue from
+        assert asyncio.run(asyncio.wait_for(issue(), READY_S)) in ("permission_denied", "unavailable")
+
+
 @pytest.mark.parametrize("args,item", [
     (["--rest-port", "0"], "manager/rest.py"),
     (["--config", "rest.yaml"], "manager/rest.py"),
@@ -426,11 +474,79 @@ def test_the_process_serves_keeps_its_registry_and_stops_on_sigterm(run, tmp_pat
     (["--config", "tracing.yaml"], "tracing exporters"),
 ])
 def test_flags_the_port_has_not_ported_are_refused(args, item, tmp_path):
-    (tmp_path / "rest.yaml").write_text("rest_port: 9201\n")
-    (tmp_path / "tracing.yaml").write_text("tracing:\n  trace_file: /tmp/spans.jsonl\n")
+    """Once refused with exit code 2, now ported: each flag boots a manager
+    that answers on what the flag turned on and has loaded no torch."""
+    (tmp_path / "rest.yaml").write_text("rest_port: 0\n")
+    (tmp_path / "tracing.yaml").write_text(f"tracing:\n  trace_file: {tmp_path / 'spans.jsonl'}\n")
     env = {k: v for k, v in _env().items()
            if k not in ("DRAGONFLY_CERT_TOKEN", "DRAGONFLY_AUTH_SECRET", "DRAGONFLY_ADMIN_PASSWORD")}
-    p = subprocess.run([*SERVER, *args], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
-    assert p.returncode == 2, p.stderr
-    assert "ROADMAP.md" in p.stderr and item in p.stderr, p.stderr
-    assert "manager ready" not in p.stdout
+    with open(tmp_path / "manager.err", "w") as err:
+        p = subprocess.Popen([sys.executable, "-c", _PROBE, "--host", "127.0.0.1", "--port", "0",
+                              "--db", str(tmp_path / "m.db"), *args],
+                             cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            read = pool.submit(lambda: (p.stdout.readline(), p.stdout.readline()))
+            try:
+                ready, loaded = read.result(timeout=READY_S)
+            except concurrent.futures.TimeoutError:
+                p.kill()
+                raise
+        assert ready.startswith("manager ready rpc=127.0.0.1:"), (ready, (tmp_path / "manager.err").read_text())
+        assert loaded == "LOADED \n", loaded
+        addr, rest = ready.split()[2][len("rpc="):], ready.split()[3][len("rest="):]
+        assert (rest != "None") == (item == "manager/rest.py")
+        _check_booted(item, rest, tmp_path, addr)
+    finally:
+        assert _stop(p) == 0
+    if "--admin-password" in args:
+        assert [u["role"] for u in Database(str(tmp_path / "m.db")).find("users", name="admin")] == ["admin"]
+    if "--ca-dir" in args:
+        assert (tmp_path / "ca" / "ca.pem").exists()
+
+
+def test_a_manager_with_every_flag_on_serves_and_loads_no_torch(tmp_path):
+    """REST with auth, the admin user, the CA with its cert token, object
+    storage, the debug server and a span file at once: a signed-in admin
+    lists the buckets, a leaf is issued over RPC, and no torch is loaded."""
+    import json
+    import urllib.request
+
+    (tmp_path / "tracing.yaml").write_text(f"tracing:\n  trace_file: {tmp_path / 'spans.jsonl'}\n")
+    with open(tmp_path / "manager.err", "w") as err:
+        p = subprocess.Popen([sys.executable, "-c", _PROBE, "--host", "127.0.0.1", "--port", "0",
+                              "--db", str(tmp_path / "m.db"), "--rest-port", "0", "--metrics-port", "0",
+                              "--ca-dir", "ca", "--cert-token", "t0k", "--auth-secret", "s3cret",
+                              "--admin-password", "adminpw", "--object-storage-dir", "objects",
+                              "--config", "tracing.yaml"],
+                             cwd=tmp_path, env=_env(), stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            read = pool.submit(lambda: (p.stdout.readline(), p.stdout.readline()))
+            try:
+                ready, loaded = read.result(timeout=READY_S)
+            except concurrent.futures.TimeoutError:
+                p.kill()
+                raise
+        assert loaded == "LOADED \n", (loaded, (tmp_path / "manager.err").read_text()[-2000:])
+        addr, rest = ready.split()[2][len("rpc="):], int(ready.split()[3][len("rest="):])
+        base = f"http://127.0.0.1:{rest}"
+        signin = urllib.request.Request(f"{base}/api/v1/users/signin", method="POST",
+                                        data=json.dumps({"name": "admin", "password": "adminpw"}).encode(),
+                                        headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(signin, timeout=10) as r:
+            token = json.loads(r.read())["token"]
+        buckets = urllib.request.Request(f"{base}/api/v1/buckets", headers={"Authorization": f"Bearer {token}"})
+        with urllib.request.urlopen(buckets, timeout=10) as r:
+            assert json.loads(r.read()) == []
+
+        async def issue():
+            c = RemoteManagerClient(addr, retries=0)
+            try:
+                return await c.issue_certificate("svc", sans=["127.0.0.1"], token="t0k")
+            finally:
+                await c.close()
+
+        assert "BEGIN CERTIFICATE" in asyncio.run(asyncio.wait_for(issue(), READY_S))["cert_pem"]
+    finally:
+        assert _stop(p) == 0

@@ -440,3 +440,34 @@ def test_port_manager_client_publishes_and_keeps_alive(tmp_path):
             await manager.stop()
 
     _run(body())
+
+
+@pytest.mark.parametrize("direction", ["port-client-ref-server", "ref-client-port-server"])
+def test_big_frames_and_coalesced_writes_cross_the_packages(direction):
+    """Frames past the 64 KiB zero-copy threshold, and 200 calls in flight
+    on one connection (their frames coalesced into batched writes), each
+    way between the packages, answered exactly."""
+    client_mod, server_mod = (core, ref_core) if direction.startswith("port") else (ref_core, core)
+    rng = np.random.default_rng(11)
+    blobs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (64 << 10, (64 << 10) + 1, 3 << 20)]
+
+    async def body():
+        server = server_mod.RpcServer(port=0)
+
+        async def echo(p):
+            return p
+
+        server.register("echo", echo)
+        await server.start()
+        client = client_mod.RpcClient(f"127.0.0.1:{server.port}", retries=0)
+        try:
+            big = [await client.call("echo", {"b": b}) for b in blobs]  # dflint: disable=DF025 one call per frame size under test
+            many = await asyncio.gather(*(client.call("echo", {"i": i, "pad": "x" * (i % 97)}) for i in range(200)))
+            return big, many
+        finally:
+            await client.close()
+            await server.stop()
+
+    big, many = _run(body())
+    assert [b["b"] for b in big] == blobs
+    assert many == [{"i": i, "pad": "x" * (i % 97)} for i in range(200)]

@@ -17,9 +17,10 @@
   ``--federation-peers`` boot (with the manager down, the scheduler serves
   standalone); a port scheduler process attaches a model published to a
   port manager process, and its stats frames reach the manager.
-- The flags whose machinery the port has not ported (``--metrics-port``, a
-  ``tracing:`` exporter) are refused with exit code 2 and the ROADMAP.md
-  item that ports them, with or without a manager.
+- The flags the port once refused (``--metrics-port``, a ``tracing:``
+  exporter) boot, with or without a manager: the debug server answers
+  ``/metrics`` with the port's registry, and the booted process has loaded
+  no torch.
 
 Every subprocess has a deadline of 120 s or less.
 """
@@ -230,6 +231,20 @@ def test_a_booted_server_has_loaded_no_jax_torch_or_reference_module(args, tmp_p
     assert lines[1] == "LOADED ", lines[1]
 
 
+def _scrape(log: Path, deadline: float) -> str:
+    """``/metrics`` of the debug server the scheduler's log names."""
+    import re
+    import urllib.request
+
+    while True:
+        m = re.search(r"scheduler metrics on [\d.]+:(\d+)", log.read_text())
+        if m:
+            with urllib.request.urlopen(f"http://127.0.0.1:{m.group(1)}/metrics", timeout=10) as r:
+                return r.read().decode()
+        assert time.monotonic() < deadline, log.read_text()[-2000:]
+        time.sleep(0.05)
+
+
 @pytest.mark.parametrize("args,item", [
     (["--metrics-port", "0"], "observability/server.py"),
     (["--config", "metrics.yaml"], "observability/server.py"),
@@ -237,15 +252,31 @@ def test_a_booted_server_has_loaded_no_jax_torch_or_reference_module(args, tmp_p
     (["--config", "otlp.yaml"], "tracing exporters"),
     (["--manager", "127.0.0.1:65000", "--metrics-port", "0"], "observability/server.py"),
     (["--federation-peers", "auto", "--config", "tracing.yaml"], "tracing exporters"),
+    (["--evaluator", "ml", "--metrics-port", "0", "--config", "otlp.yaml"], "observability/server.py"),
 ])
 def test_flags_the_port_has_not_ported_are_refused(args, item, tmp_path):
-    (tmp_path / "tracing.yaml").write_text("tracing:\n  trace_file: /tmp/spans.jsonl\n")
-    (tmp_path / "otlp.yaml").write_text("tracing:\n  otlp_endpoint: 127.0.0.1:4317\n")
-    (tmp_path / "metrics.yaml").write_text("metrics_port: 9100\n")
-    p = subprocess.run([*SERVER, *args], cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=120)
-    assert p.returncode == 2
-    assert "ROADMAP.md" in p.stderr and item in p.stderr, p.stderr
-    assert "SCHEDULER_READY" not in p.stdout
+    """Once refused with exit code 2, now ported: each boots and serves. The
+    debug server's /metrics renders the port's registry; the booted process
+    has loaded no torch."""
+    (tmp_path / "tracing.yaml").write_text(f"tracing:\n  trace_file: {tmp_path / 'spans.jsonl'}\n")
+    (tmp_path / "otlp.yaml").write_text(f"tracing:\n  otlp_file: {tmp_path / 'otlp.jsonl'}\n")
+    (tmp_path / "metrics.yaml").write_text("metrics_port: 0\n")
+    deadline = time.monotonic() + 60.0
+    log = tmp_path / "scheduler.log"
+    with open(log, "w") as err:
+        proc = subprocess.Popen([*SERVER, *args], cwd=tmp_path, env=_env(), stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+    try:
+        assert ready_address(proc, "SCHEDULER_READY", deadline).startswith("127.0.0.1:")
+        if item == "observability/server.py":
+            text = _scrape(log, deadline)
+            assert "# TYPE dragonfly_scheduler_ml_serving_mode gauge" in text, text[:2000]
+    finally:
+        assert _stop(proc, 10.0) == 0
+    p = subprocess.run([sys.executable, "-c", _PROBE, "--host", "127.0.0.1", "--port", "0", *args],
+                       cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.splitlines()[1] == "LOADED ", p.stdout
 
 
 @pytest.mark.parametrize("args", [
