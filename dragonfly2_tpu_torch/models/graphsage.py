@@ -27,6 +27,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
 from dragonfly2_tpu_torch.models.features import EDGE_FEATURE_DIM, FEATURE_DIM, NODE_FEATURE_DIM
+from dragonfly2_tpu_torch.observability.tracing import stage
 from dragonfly2_tpu_torch.ops.neighbor_agg import masked_mean, neighbor_gather
 
 
@@ -201,9 +202,12 @@ class SAGELayer(nn.Module):
         # sums each row's gradient over its neighbour slots in f32, where a
         # bf16 index_add would round at every add, and on a mesh in another
         # order across "data" shards than on one device
-        nbr = neighbor_gather(u.float(), g.neighbors).to(self.dtype)
-        msg = gelu(nbr + s[:, None, :] + v)  # [N, K, F]
-        agg = masked_mean(msg, g.mask.to(self.dtype))  # [N, F]
+        with stage("gnn.sage.gather"):
+            nbr = neighbor_gather(u.float(), g.neighbors).to(self.dtype)
+        with stage("gnn.sage.message"):
+            msg = gelu(nbr + s[:, None, :] + v)  # [N, K, F]
+        with stage("gnn.sage.mean"):
+            agg = masked_mean(msg, g.mask.to(self.dtype))  # [N, F]
         out = gelu(self.Dense_0(h) + agg)
         return self.LayerNorm_0(out)
 

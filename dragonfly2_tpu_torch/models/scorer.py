@@ -20,6 +20,7 @@ import torch
 from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.models.features import BASE_WEIGHTS, FEATURE_DIM
 from dragonfly2_tpu_torch.models.graphsage import TopoGraph, TopoScorer
+from dragonfly2_tpu_torch.observability.tracing import stage
 
 
 class LinearScorer:
@@ -90,11 +91,15 @@ class GNNScorer:
         are f32 products of bf16 operands, so their per-round sum loses
         nothing against the single fused product.
         """
-        z = self._model.embed(graph.to(self._device))
+        with stage("gnn.refresh.upload"):
+            g = graph.to(self._device)
+        with stage("gnn.refresh.encode"):
+            z = self._model.embed(g)
         w1 = self._model.head.layers_0.weight.T  # flax layout [in, out]
         e = z.shape[1]
-        self._uc = _dot_f32(z, w1[:e])
-        self._up = _dot_f32(z, w1[e : 2 * e])
+        with stage("gnn.refresh.partials"):
+            self._uc = _dot_f32(z, w1[:e])
+            self._up = _dot_f32(z, w1[e : 2 * e])
         self._z = z
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)

@@ -24,6 +24,10 @@ client/config/constants_otel.go). Dependency-free design:
   and/or JSON-lines file (the jaeger-exporter stand-in — one dict per span
   with trace_id, span_id, parent_id, name, start, duration_ms, attrs,
   status), and/or OTLP/JSON batches (file or collector endpoint).
+- While a ``torch.profiler`` records, `stage(name)` opens a profiler range
+  of that name, so the program's stages sit on the profiler's clock beside
+  the kernels they launch. Otherwise it hands back one shared no-op, at the
+  cost of one flag read; the module never imports torch itself.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import os
 import queue as queue_mod
 import random
 import secrets
+import sys
 import threading
 import time
 from collections import deque
@@ -51,6 +56,34 @@ TRACEPARENT_HEADER = "traceparent"
 # 1-in-100 traces recorded end to end, the rest cost one unsampled-root draw
 # per entry point. Library/test Tracer() instances keep sample_rate=1.0.
 DEFAULT_SERVICE_SAMPLE_RATE = 0.01
+
+
+class _NoStage:
+    """The context manager `stage` hands back while no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
+
+
+_NO_STAGE = _NoStage()
+
+
+def stage(name: str):
+    """A profiler range named ``name`` around a stage of device work while a
+    ``torch.profiler`` records, so that the kernels the stage launches (on
+    any thread, autograd's included) can be charged to it by their launch
+    time; otherwise the shared no-op. Nothing is exported: the range lives
+    only in the profiler's trace. The module is looked up, never imported:
+    without torch loaded no profiler can record."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return _NO_STAGE
+    return prof.record_function(name)
 
 
 def _gen_trace_id() -> str:

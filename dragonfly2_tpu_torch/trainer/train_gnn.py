@@ -31,6 +31,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from dragonfly2_tpu_torch import resolve_device
 from dragonfly2_tpu_torch.models.graphsage import TopoGraph, TopoScorer
 from dragonfly2_tpu_torch.models.weights import init_flax_like, params_from_flax
+from dragonfly2_tpu_torch.observability.tracing import stage
 from dragonfly2_tpu_torch.parallel import distributed as dist_lib
 from dragonfly2_tpu_torch.parallel import mesh as meshlib
 from dragonfly2_tpu_torch.trainer.synthetic import PairBatch, sample_batch
@@ -296,11 +297,14 @@ def make_train_step(remat: bool = False, *, with_metrics: bool = False) -> Calla
         else:
             apply = model
         state.optimizer.zero_grad()
-        loss = loss_fn(apply, g, batch)
-        if state.mesh is not None:  # the mean over "data" rows comes back a partial sum
-            loss = loss.redistribute(state.mesh, meshlib.replicated(state.mesh))
-        loss.backward()
-        gnorm = state.optimizer.step(state.step)
+        with stage("gnn.train.forward"):
+            loss = loss_fn(apply, g, batch)
+            if state.mesh is not None:  # the mean over "data" rows comes back a partial sum
+                loss = loss.redistribute(state.mesh, meshlib.replicated(state.mesh))
+        with stage("gnn.train.backward"):
+            loss.backward()
+        with stage("gnn.train.optimizer"):
+            gnorm = state.optimizer.step(state.step)
         state.step += 1
         loss = loss.detach()
         if state.mesh is not None:
@@ -448,12 +452,13 @@ def make_multi_step(
         losses = torch.empty(steps_per_call, dtype=torch.float32, device=dev)
         norms = torch.empty(steps_per_call, dtype=torch.float32, device=dev)
         for i in range(steps_per_call):
-            idx = torch.randint(0, n_pool, (batch_size,), generator=gen, device=dev)
-            if st.mesh is None:
-                batch = PairBatch(*(a.index_select(0, idx) for a in pool_t))
-            else:
-                batch = PairBatch(*(_rows_to_mesh(a.index_select(0, idx[lo:hi]), batch_size, st.mesh)
-                                    for a in pool_t))
+            with stage("gnn.train.sample"):
+                idx = torch.randint(0, n_pool, (batch_size,), generator=gen, device=dev)
+                if st.mesh is None:
+                    batch = PairBatch(*(a.index_select(0, idx) for a in pool_t))
+                else:
+                    batch = PairBatch(*(_rows_to_mesh(a.index_select(0, idx[lo:hi]), batch_size, st.mesh)
+                                        for a in pool_t))
             st, (loss, gnorm) = step(st, g, batch)
             losses[i] = loss
             norms[i] = gnorm
