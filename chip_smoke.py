@@ -363,9 +363,21 @@ Phases, each of which must hold or the run exits non-zero at once:
              plain version, its bound and one PyTorch library call. K2 is
              timed with its transposed index built beforehand; the index
              build is timed on its own.
+19. sage     K3 and K4, the fused SAGE message path, at the cluster's
+             [16384, 16, H] for H 256 and 512: held against the plain ops
+             (every element within one bf16 rounding, the bit-equal share
+             printed), two launches bit for bit, then timed beside the plain
+             path (forward under no_grad, backward by autograd over a kept
+             graph) and their bound; their launches on one 10-step train call
+             at the training phase's widths and on one refresh at the serving
+             widths, once a layer each. ``--only sage`` runs the device phase
+             and this one alone.
 
 This script imports and launches nothing of the JAX package.
-Launch counts are set to 0 just before each main path and read just after.
+Launch counts are set to 0 just before each main path and read just after;
+the phases that assert a path launches no kernel mean K1 and K2: on the card
+every SAGE layer runs K3 and K4, whose counts the serving, training and sage
+phases report.
 Prints a ``{"kernels": [...]}`` line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -404,7 +416,7 @@ import torch.nn.functional as F
 
 from dragonfly2_tpu_torch.models import GNNScorer, TopoScorer, init_flax_like, params_from_flax
 from dragonfly2_tpu_torch.native import MicroBatchScorer, ScorerHandlePool
-from dragonfly2_tpu_torch.ops import _build, neighbor_agg_cuda, neighbor_aggregate
+from dragonfly2_tpu_torch.ops import _build, neighbor_agg_cuda, neighbor_aggregate, sage_message
 from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import (
     neighbor_aggregate_bwd_cuda,
     neighbor_aggregate_bwd_torch,
@@ -468,9 +480,12 @@ MLP_CPU_STEPS, MLP_EVAL_MAX_ABS = 3, 5e-3
 WIRING_DEADLINE_S, WIRING_ROUND_SEED = 120.0, 21
 # the sharded phase: the training phase's shape on a (1, 1) mesh, held to the
 # card-vs-CPU bounds and to tight ones: on a world of one the collectives are
-# identities, so the mesh run differs from one device only by the order of
-# the backward's atomic adds (tests/test_torch_parallel.py holds mesh against
-# one process to the same 1e-4 / 1e-3); mp_train's own cluster (128 hosts, 12 steps)
+# identities, so the mesh run (DTensors: SAGELayer's plain ops) differs from
+# one device (K3 and K4) by the order of the backward's atomic adds and of
+# the fused op's f32 sums, and where msg_edge's cuBLAS product rounds its
+# edge term otherwise (tests/test_torch_parallel.py holds mesh against one
+# process, both plain, to the same 1e-4 / 1e-3); mp_train's own cluster (128
+# hosts, 12 steps)
 SHARDED_CALLS, MP_TRAIN_DEADLINE_S = 2, 300.0
 SHARDED_LOSS_MAX_ABS, SHARDED_PARAM_MAX_ABS = 1e-4, 1e-3
 # about 1 GiB of checkpoint-like tensors: 7 bf16 [8192, 8192] weights, one
@@ -554,6 +569,19 @@ TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: dict(rtol=3e-2
 EMBED_MIN_COSINE, SCORE_MAX_ABS = 0.999, 5e-3
 # H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
 HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
+# K3 and K4, the fused SAGE message path: the instructions a live element of
+# [N, K, H] needs, for their bound beside the bytes, tallied from the ops of
+# csrc/neighbor_agg.cu at 4 edge features, an f32 op rounded to bf16 counting
+# 3 (the op, the narrowing, the widening) and the precise tanhf with its
+# rounding 18 (libdevice's, an estimate: no tool here counts the card's
+# instructions). The pre-activation x, 13: u's widening, the edge term's 4
+# FMAs and rounding, two rounded adds. t = tanh(c(x + kx^3)), 33: five rounded
+# ops and tanhf. The forward's rest, 13: GELU's three rounded ops, the mask's
+# rounded product, the f32 sum. The VJP's own ops, given x and t, 57: 16
+# rounded ops, the mask's product, g_s's sum, g_We's 4 FMAs, dx's narrowing.
+# And the widths they are timed at.
+SAGE_PREACT_INSTR, SAGE_TANH_INSTR, SAGE_FWD_REST_INSTR, SAGE_VJP_INSTR = 13, 33, 13, 57
+SAGE_WIDTHS = (256, 512)
 # A device-side spin of about 50 ms at the H100's ~2 GHz clock: long enough
 # for the host to queue every launch of a timed run behind it.
 SPIN_CYCLES = 100_000_000
@@ -1013,11 +1041,25 @@ def ingest() -> dict:
 
 def sharded_training(cluster, mesh) -> dict:
     """train_async on the (1, 1) mesh against train_async on the card, from
-    the same start and seed."""
+    the same start and seed: the plain message path against the fused one
+    (K3 and K4), whose launches are counted on both sides."""
+    def launched_since(before: dict) -> dict:
+        return {k: v - before[k] for k, v in sage_counts().items()}
+
+    before = sage_counts()
     plain_state, plain_losses, plain = train_run(cluster, TRAIN, SHARDED_CALLS)
+    plain["sage_launches"] = launched_since(before)
     want = {k: v.detach().cpu() for k, v in plain_state.model.state_dict().items()}
     del plain_state
+    before = sage_counts()
     state, losses, sharded = train_run(cluster, TRAIN, SHARDED_CALLS, mesh=mesh)
+    sharded["sage_launches"] = launched_since(before)
+    steps = SHARDED_CALLS * STEPS_PER_CALL * TRAIN.num_layers
+    print(f"  K3/K4 launches: one device {plain['sage_launches']}, mesh {sharded['sage_launches']}")
+    if (plain["sage_launches"] != {"sage_message_fwd": steps, "sage_message_bwd": steps}
+            or any(sharded["sage_launches"].values())):
+        raise AssertionError(f"want {steps} K3 and K4 launches on one device and none on the mesh: "
+                             f"{plain['sage_launches']}, {sharded['sage_launches']}")
     got = {k: v.cpu() for k, v in full_state_dict(state.model).items()}
     placed = {type(p).__name__ for p in (*state.optimizer.params, *state.optimizer.mu, *state.optimizer.nu)}
     del state
@@ -1035,7 +1077,7 @@ def sharded_training(cluster, mesh) -> dict:
         raise AssertionError(f"the mesh and one device disagree: loss {loss_err} > {TRAIN_LOSS_MAX_ABS} "
                              f"or parameters {param_err} > {TRAIN_PARAM_MAX_ABS}")
     if loss_err > SHARDED_LOSS_MAX_ABS or param_err > SHARDED_PARAM_MAX_ABS:
-        raise AssertionError(f"a world of one parts from one device by more than ordering: loss {loss_err} > "
+        raise AssertionError(f"a world of one parts from one device by more than summation order: loss {loss_err} > "
                              f"{SHARDED_LOSS_MAX_ABS} or parameters {param_err} > {SHARDED_PARAM_MAX_ABS}")
     return {"plain": plain, "mesh": sharded, "loss_max_abs": loss_err, "param_max_abs": param_err}
 
@@ -4017,13 +4059,15 @@ def live_slots(nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (mask != 0) & (nbr >= 0) & (nbr < nbr.shape[0])
 
 
-def kernel_usage(info: dict, kernel: str) -> dict:
-    """Registers and spill bytes of the kernel's bf16 vector instantiation,
-    the one the main paths launch, from the build's -Xptxas -v output, and
-    whether that output is this run's nvcc's or the log of an earlier build
-    of the same source and flags."""
+def kernel_usage(info: dict, kernel: str, vector: bool = True) -> dict:
+    """Registers and spill bytes of the kernel's bf16 vector instantiation
+    (``vector``; K3 and K4 have only the one), the one the main paths
+    launch, from the build's -Xptxas -v output, and whether that output is
+    this run's nvcc's or the log of an earlier build of the same source and
+    flags."""
     found = [u for name, u in _build.ptxas_usage(info["log"]).items()
-             if kernel in name and "13__nv_bfloat16Li8E" in name]
+             if f"{len(kernel)}{kernel}" in name
+             and (not vector or ("13__nv_bfloat16Li8E" in name and "Lb1E" not in name))]  # not K2's unit twin
     if len(found) != 1:
         raise AssertionError(f"ptxas reported {len(found)} bf16 vector instantiations of {kernel}")
     return {"registers": found[0]["registers"], "spills": found[0]["spill_stores"] + found[0]["spill_loads"],
@@ -4163,6 +4207,185 @@ def kernel_row_bwd(nbr: torch.Tensor, mask: torch.Tensor, hdim: int, launches: i
     }
 
 
+def sage_inputs(cluster, hdim: int, seed: int) -> dict:
+    """K3's inputs at a main path's shape: the cluster's neighbour table,
+    mask and edge features on the card, u, s and the incoming gradient
+    [N, hdim] in bf16 and msg_edge's weight [hdim, 4] in bf16, from a seed."""
+    g = cluster.graph.to("cuda")
+    n = g.neighbors.shape[0]
+    rng = np.random.default_rng(seed)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).cuda().bfloat16()  # noqa: E731
+    return {"u": bf(rng.normal(size=(n, hdim))), "s": bf(rng.normal(size=(n, hdim))),
+            "weight": bf(rng.normal(size=(hdim, g.edge_feats.shape[2])) * 0.5),
+            "edge_feats": g.edge_feats, "neighbors": g.neighbors, "mask": g.mask,
+            "g": bf(rng.normal(size=(n, hdim)))}
+
+
+def sage_grads(fn, x: dict) -> tuple[torch.Tensor, tuple]:
+    """agg = fn(u, s, w) and its gradients (g_u, g_s, g_We) for x["g"]."""
+    u, s, w = (x[k].clone().requires_grad_() for k in ("u", "s", "weight"))
+    agg = fn(u, s, w)
+    return agg.detach(), torch.autograd.grad(agg, (u, s, w), x["g"])
+
+
+def sage_check(x: dict) -> dict:
+    """K3 and K4 against the plain ops with the edge term summed in the
+    kernels' order: every element within one bf16 rounding (only an f32
+    sum's order differs); the share that is bit-equal, by output."""
+    graph = (x["edge_feats"], x["neighbors"], x["mask"])
+
+    def fused(u, s, w):
+        return sage_message.sage_message(u, s, graph[0], w, *graph[1:])
+
+    def plain(u, s, w):  # msg_edge's product as the kernels sum it, then the plain path
+        e, wf = graph[0].bfloat16().float(), w.float()
+        v = e[..., 0:1] * wf[:, 0]
+        for d in range(1, e.shape[-1]):
+            v = v + e[..., d:d + 1] * wf[:, d]
+        return sage_message.message_path(u, s, v.bfloat16(), *graph[1:])
+
+    got, want = sage_grads(fused, x), sage_grads(plain, x)
+    torch.cuda.synchronize()
+    equal = {}
+    for name, a, b in zip(("agg", "g_u", "g_s", "g_We"), (got[0], *got[1]), (want[0], *want[1])):
+        af, bf = a.float(), b.float()
+        _, ex = torch.frexp(torch.maximum(af.abs(), bf.abs()))
+        ulp = torch.where(torch.maximum(af.abs(), bf.abs()) > 0, torch.ldexp(torch.ones_like(af), ex - 8),
+                          torch.full_like(af, 2.0**-133))
+        over = int(((af - bf).abs() > ulp).sum())
+        equal[name] = float((a == b).float().mean())
+        if over or a.dtype != b.dtype:
+            raise AssertionError(f"K3/K4 {name}: {over} elements more than one bf16 rounding off the plain ops")
+    return equal
+
+
+def sage_row(cluster, hdim: int, usage: dict) -> dict:
+    """K3 and K4 at [N, K, hdim]: the check, then timed beside the plain
+    path (forward under no_grad; backward by autograd over a kept graph, K4's
+    index built beforehand as the encoder builds it once a forward)."""
+    x = sage_inputs(cluster, hdim, seed=31 + hdim)
+    equal = sage_check(x)
+    u, s, w, gin = x["u"], x["s"], x["weight"], x["g"]
+    e, nbr, mask = x["edge_feats"], x["neighbors"], x["mask"]
+    n, k = nbr.shape
+    deterministic = twice_equal(lambda: sage_message.sage_message(u, s, e, w, nbr, mask))
+    graph = sage_message.Graph(e, nbr, mask)
+    graph.index()
+    ur, sr, wr = (t.clone().requires_grad_() for t in (u, s, w))
+    fused = sage_message.fused(ur, sr, wr, graph)
+    plain = sage_message.sage_message_torch(ur, sr, e, wr, nbr, mask)
+    grads_twice = [torch.autograd.grad(fused, (ur, sr, wr), gin, retain_graph=True) for _ in range(2)]
+    deterministic = deterministic and all(torch.equal(a, b) for a, b in zip(*grads_twice))
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn()
+        return run
+
+    cold, warm = time_all({
+        "fwd": no_grad(lambda: sage_message.sage_message(u, s, e, w, nbr, mask)),
+        "fwd plain": no_grad(lambda: sage_message.sage_message_torch(u, s, e, w, nbr, mask)),
+        "bwd": lambda: torch.autograd.grad(fused, (ur, sr, wr), gin, retain_graph=True),
+        "bwd plain": lambda: torch.autograd.grad(plain, (ur, sr, wr), gin, retain_graph=True),
+        "index": lambda: sage_message.slot_index(nbr, mask, n),
+    })
+    del fused, plain, grads_twice
+    # what a layer's call pays on the host: its check and K3's launch
+    host_us = host_us_per_call(no_grad(lambda: graph.takes(u, s, w) and sage_message.fused(u, s, w, graph)), 50)
+
+    # The least work these inputs need: each input read once, each output
+    # written once (the per-edge gradient K4 writes and gathers back is its
+    # design's, not the function's), and the elementwise work of the live
+    # slots at one instruction a lane a clock (half the f32 FMA rate, which
+    # counts two). K4's gradient needs x and t besides the VJP's own ops, at
+    # the least of three costs: recomputed, x read back (t recomputed), or
+    # both read back in bf16 (the forward's writes of them are its own cost)
+    live = int(((mask.bfloat16() != 0) & (nbr >= 0) & (nbr < n)).sum())
+    elems, edim = live * hdim, e.shape[2]
+    graph_bytes = n * k * (edim * 4 + 8)
+    fwd_bytes = 3 * n * hdim * 2 + graph_bytes + hdim * edim * 2
+    bwd_bytes = 5 * n * hdim * 2 + graph_bytes + 2 * hdim * edim * 2
+    floors = {"fwd": {"": (fwd_bytes, SAGE_PREACT_INSTR + SAGE_TANH_INSTR + SAGE_FWD_REST_INSTR)},
+              "bwd": {"x and t recomputed": (bwd_bytes, SAGE_VJP_INSTR + SAGE_PREACT_INSTR + SAGE_TANH_INSTR),
+                      "x read back": (bwd_bytes + 2 * elems, SAGE_VJP_INSTR + SAGE_TANH_INSTR),
+                      "x and t read back": (bwd_bytes + 4 * elems, SAGE_VJP_INSTR)}}
+    rows = []
+    for name in ("fwd", "bwd"):
+        (bound_ms, bound_by), way = min((bound(nbytes, 2 * elems * instr), way)
+                                        for way, (nbytes, instr) in floors[name].items())
+        nbytes, instr = floors[name][way]
+        bound_by = ("instructions" if bound_by == "operations" else bound_by) + (f", {way}" if way else "")
+        print(f"  K3/K4 {name} bf16 [{n}, {k}, {hdim}] (L2 flushed / back to back): kernel "
+              f"{cold[name]:.4f} / {warm[name]:.4f} ms, plain {cold[name + ' plain']:.4f} / "
+              f"{warm[name + ' plain']:.4f} ms; bound {bound_ms * 1e3:.1f} us ({bound_by}: {nbytes} bytes, "
+              f"{live} live slots x {hdim} x {instr} instructions), {bound_ms / cold[name]:.1%} of it flushed; "
+              f"{usage[name]['registers']} registers, {usage[name]['spills']} bytes of spills")
+        rows.append({
+            "name": f"sage_message_{name}", "route": "cuda", "source": "dragonfly2_tpu_torch/csrc/neighbor_agg.cu",
+            "replaces": None, "ms": cold[name], "plain_ms": cold[name + " plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "ms_l2_warm": warm[name], "plain_ms_l2_warm": warm[name + " plain"],
+            "deterministic": deterministic, "bit_equal_share": equal, **usage[name],
+            "host_us_per_launch": host_us if name == "fwd" else None,
+            "index_build_ms": cold["index"] if name == "bwd" else None,
+            "index_build_ms_l2_warm": warm["index"] if name == "bwd" else None,
+            "dtype": "bfloat16", "shape": [n, k, hdim], "ok": True,
+        })
+    print(f"  K3/K4 at hidden {hdim}: bit-equal shares against the plain ops {equal}; K4's index build "
+          f"{cold['index']:.4f} / {warm['index']:.4f} ms once a forward; a layer's check and K3's launch take "
+          f"{host_us:.1f} us of host time; two launches bit-identical: {deterministic}")
+    if not deterministic:
+        raise AssertionError("K3 or K4 gave other bits on a second launch")
+    return rows
+
+
+def sage_paths(cluster) -> dict:
+    """K3 and K4's launches on the train path (one make_multi_step call at
+    the full-cluster widths, after a warm-up call) and on the refresh path
+    (one GNNScorer.refresh at the serving widths, after a warm-up one)."""
+    state = train_gnn.init_state(TRAIN, rng_seed=WEIGHT_SEED, device="cuda")
+    multi = train_gnn.make_multi_step(state, cluster.graph, cluster.pairs, batch_size=TRAIN.batch_size,
+                                      steps_per_call=STEPS_PER_CALL)
+    state, losses = multi(state)
+    losses.cpu()
+    zero_counts()
+    state, losses = multi(state)
+    losses.cpu()
+    train = sage_counts()
+    del state, multi
+    model = TopoScorer(**MODEL)
+    scorer = GNNScorer(model, params_from_flax(init_flax_like(model, seed=WEIGHT_SEED)), device="cuda")
+    scorer.refresh(cluster.graph)
+    zero_counts()
+    scorer.refresh(cluster.graph)
+    refresh = sage_counts()
+    want_train = {"sage_message_fwd": TRAIN.num_layers * STEPS_PER_CALL,
+                  "sage_message_bwd": TRAIN.num_layers * STEPS_PER_CALL}
+    want_refresh = {"sage_message_fwd": MODEL["num_layers"], "sage_message_bwd": 0}
+    print(f"  launches: a {STEPS_PER_CALL}-step train call {train} (want {want_train}); a refresh {refresh} "
+          f"(want {want_refresh})")
+    if train != want_train or refresh != want_refresh:
+        raise AssertionError("K3/K4 launched other than once a layer on the train or refresh path")
+    return {"train_call": train, "refresh": refresh}
+
+
+def sage_phase(card: str, cluster=None) -> list[dict]:
+    """K3 and K4: checked and timed at both widths, and their launch counts
+    on the train and refresh paths."""
+    with phase("sage"):
+        if cluster is None:
+            cluster = make_cluster(num_nodes=NUM_HOSTS, num_neighbors=NUM_NEIGHBORS, seed=GRAPH_SEED)
+        info = _build.build("neighbor_agg")
+        usage = {"fwd": kernel_usage(info, "sage_message_fwd_kernel", vector=False),
+                 "bwd": kernel_usage(info, "sage_message_bwd_kernel", vector=False)}
+        rows = [r for hdim in SAGE_WIDTHS for r in sage_row(cluster, hdim, usage)]
+        launches = sage_paths(cluster)
+        for r in rows:
+            r["launches"] = launches
+        print(json.dumps({"sage": rows, "card": card}))
+    return rows
+
+
 def daemon_and_image(card: str) -> None:
     """The daemon phase, then the image phase on its cluster, each with the
     launch counts set to 0 just before it and read just after; every process
@@ -4171,8 +4394,9 @@ def daemon_and_image(card: str) -> None:
         with phase("daemon"):
             zero_counts()
             numbers, daemon_cluster = daemon_phase(daemons)
-            # no kernel is on this path: the daemons are host code, the scheduler
-            # scores with GNNScorer's plain ops and the trainer runs SAGELayer's
+            # neither K1 nor K2 is on this path: the daemons are host code, the
+            # scheduler scores with GNNScorer and the trainer runs SAGELayer (K3
+            # and K4 on the card, counted apart)
             numbers["kernel_launches"] = seen = counts()
             if any(seen.values()):
                 raise AssertionError(f"the daemon path launched a kernel it does not call: {seen}")
@@ -4181,8 +4405,8 @@ def daemon_and_image(card: str) -> None:
         with phase("image"):
             zero_counts()
             numbers = image_phase(daemon_cluster)
-            # no kernel is on this path: the proxy, the gateway and the sources
-            # are host code, and the scheduler scores with GNNScorer's plain ops
+            # neither K1 nor K2 is on this path: the proxy, the gateway and the
+            # sources are host code, and the scheduler scores with GNNScorer
             numbers["kernel_launches"] = seen = counts()
             if any(seen.values()):
                 raise AssertionError(f"the image path launched a kernel it does not call: {seen}")
@@ -4195,9 +4419,9 @@ def cluster_and_check(card: str) -> None:
     with phase("cluster"):
         zero_counts()
         numbers = cluster_phase()
-        # no kernel is on this path: the daemons, the manager and the REST
-        # front are host code, the trainer runs SAGELayer's plain ops and the
-        # schedulers score with GNNScorer's
+        # neither K1 nor K2 is on this path: the daemons, the manager and the
+        # REST front are host code, the trainer runs SAGELayer (K3 and K4 on
+        # the card, counted apart) and the schedulers score with GNNScorer
         numbers["kernel_launches"] = seen = counts()
         if any(seen.values()):
             raise AssertionError(f"the cluster path launched a kernel it does not call: {seen}")
@@ -4208,16 +4432,22 @@ def counts() -> dict:
     return {"neighbor_agg_fwd": neighbor_agg_cuda.LAUNCHES, "neighbor_agg_bwd": neighbor_agg_cuda.BWD_LAUNCHES}
 
 
+def sage_counts() -> dict:
+    return {"sage_message_fwd": sage_message.LAUNCHES, "sage_message_bwd": sage_message.BWD_LAUNCHES}
+
+
 def zero_counts() -> None:
     neighbor_agg_cuda.LAUNCHES = neighbor_agg_cuda.BWD_LAUNCHES = 0
+    sage_message.LAUNCHES = sage_message.BWD_LAUNCHES = 0
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card (see the module docstring).")
-    ap.add_argument("--only", choices=["image", "cluster"], default=None,
+    ap.add_argument("--only", choices=["image", "cluster", "sage"], default=None,
                     help="image: run the device phase, then only the daemon and image phases (the image phase "
                          "runs on the daemon phase's cluster); cluster: the device phase, then the cluster "
-                         "phase; without it, every phase")
+                         "phase; sage: the device phase, then the sage phase (K3 and K4 checked, timed and "
+                         "counted on the train and refresh paths); without it, every phase")
     args = ap.parse_args(argv)
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4238,6 +4468,15 @@ def main(argv: list[str] | None = None) -> int:
         print(f"card: {card}")
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count},
                           "phases": ["device", "cluster"]}))
+        return 0
+
+    if args.only == "sage":
+        rows = sage_phase(card)
+        print(f"chip_smoke: the device and sage phases in {time.perf_counter() - t_run:.1f} s")
+        print(json.dumps({"kernels": rows}))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count},
+                          "phases": ["device", "sage"]}))
         return 0
 
     if args.only == "image":
@@ -4278,7 +4517,8 @@ def main(argv: list[str] | None = None) -> int:
         zero_counts()
         numbers, h0 = serving(cluster, model, sd)
         seen = counts()
-        print(f"  kernel launches on the serving path: {seen}")
+        numbers["sage_launches"] = sage_counts()
+        print(f"  kernel launches on the serving path: {seen}, {numbers['sage_launches']}")
         if seen["neighbor_agg_fwd"] == 0:
             raise AssertionError("the serving path never launched neighbor_agg_fwd")
         launches = {k: launches[k] + v for k, v in seen.items()}
@@ -4289,7 +4529,8 @@ def main(argv: list[str] | None = None) -> int:
         zero_counts()
         train_numbers, state = training(cluster)
         seen = counts()
-        print(f"  kernel launches on the training path: {seen}")
+        train_numbers["sage_launches"] = sage_counts()
+        print(f"  kernel launches on the training path: {seen}, {train_numbers['sage_launches']}")
         if 0 in seen.values():
             raise AssertionError(f"the training path left a kernel unlaunched: {seen}")
         launches = {k: launches[k] + v for k, v in seen.items()}
@@ -4303,7 +4544,8 @@ def main(argv: list[str] | None = None) -> int:
     with phase("ingest"):
         zero_counts()
         numbers = ingest()
-        # no kernel is on this path: SAGELayer and the MLP launch neither K1 nor K2
+        # neither K1 nor K2 is on this path: SAGELayer (K3 and K4, counted
+        # apart) and the MLP launch neither
         numbers["kernel_launches"] = seen = counts()
         launches = {k: launches[k] + v for k, v in seen.items()}
         print(json.dumps({"ingest": numbers, "card": card}))
@@ -4311,7 +4553,9 @@ def main(argv: list[str] | None = None) -> int:
     with phase("sharded"):
         zero_counts()
         numbers = sharded(cluster)
-        # no kernel is on this path: the sharded step runs SAGELayer's plain ops
+        # neither K1 nor K2 is on this path; the one-device side runs K3 and
+        # K4 and the mesh's DTensors SAGELayer's plain ops, counted apart
+        # (sharded_training)
         numbers["kernel_launches"] = seen = counts()
         if any(seen.values()):
             raise AssertionError(f"the sharded path launched a kernel it does not call: {seen}")
@@ -4320,8 +4564,9 @@ def main(argv: list[str] | None = None) -> int:
     with phase("wiring"):
         zero_counts()
         numbers = wiring()
-        # no kernel is on this path: the trainer runs SAGELayer's plain ops,
-        # and serving runs the C++ scorer or GNNScorer's plain ops
+        # neither K1 nor K2 is on this path: the trainer runs SAGELayer (K3
+        # and K4 on the card, counted apart), and serving the C++ scorer or
+        # GNNScorer
         numbers["kernel_launches"] = seen = counts()
         if any(seen.values()):
             raise AssertionError(f"the wiring path launched a kernel it does not call: {seen}")
@@ -4330,8 +4575,9 @@ def main(argv: list[str] | None = None) -> int:
     with phase("stress"):
         zero_counts()
         numbers = stress()
-        # no kernel is on this path: the artifact's embedding runs SAGELayer's
-        # plain ops, and scoring the C++ scorer or GNNScorer's plain ops
+        # neither K1 nor K2 is on this path: the artifact's embedding runs
+        # SAGELayer (K3 on the card, counted apart), and scoring the C++
+        # scorer or GNNScorer
         numbers["kernel_launches"] = seen = counts()
         if any(seen.values()):
             raise AssertionError(f"the stress path launched a kernel it does not call: {seen}")
@@ -4340,8 +4586,8 @@ def main(argv: list[str] | None = None) -> int:
     with phase("evaluator"):
         zero_counts()
         numbers = evaluator()
-        # no kernel is on this path: the evaluator scores through the C++
-        # scorer or GNNScorer's plain ops
+        # neither K1 nor K2 is on this path: the evaluator scores through the
+        # C++ scorer or GNNScorer
         numbers["kernel_launches"] = seen = counts()
         if any(seen.values()):
             raise AssertionError(f"the evaluator path launched a kernel it does not call: {seen}")
@@ -4350,8 +4596,9 @@ def main(argv: list[str] | None = None) -> int:
     with phase("scheduler"):
         zero_counts()
         numbers = scheduler_phase()
-        # no kernel is on this path: the scheduler scores through the C++
-        # scorer or GNNScorer's plain ops, and the trainer runs SAGELayer's
+        # neither K1 nor K2 is on this path: the scheduler scores through the
+        # C++ scorer or GNNScorer, and the trainer runs SAGELayer (K3 and K4
+        # on the card, counted apart)
         numbers["kernel_launches"] = seen = counts()
         if any(seen.values()):
             raise AssertionError(f"the scheduler path launched a kernel it does not call: {seen}")
@@ -4360,7 +4607,8 @@ def main(argv: list[str] | None = None) -> int:
     with phase("swarm"):
         zero_counts()
         numbers = swarm()
-        # no kernel is on this path: the swarm is the control plane over TCP
+        # neither K1 nor K2 is on this path: the swarm is the control plane
+        # over TCP
         numbers["kernel_launches"] = seen = counts()
         if any(seen.values()):
             raise AssertionError(f"the swarm path launched a kernel it does not call: {seen}")
@@ -4369,8 +4617,9 @@ def main(argv: list[str] | None = None) -> int:
     with phase("rollout"):
         zero_counts()
         numbers = rollout()
-        # no kernel is on this path: the scheduler scores through GNNScorer's
-        # or the C++ scorer's plain ops, and the trainer runs SAGELayer's
+        # neither K1 nor K2 is on this path: the scheduler scores through
+        # GNNScorer or the C++ scorer, and the trainer runs SAGELayer (K3 and
+        # K4 on the card, counted apart)
         numbers["kernel_launches"] = seen = counts()
         if any(seen.values()):
             raise AssertionError(f"the rollout path launched a kernel it does not call: {seen}")
@@ -4379,8 +4628,9 @@ def main(argv: list[str] | None = None) -> int:
     with phase("sim"):
         zero_counts()
         numbers = sim_phase()
-        # no kernel is on this path: the simulator is host code, the learned
-        # model trains with SAGELayer's plain ops and serves with GNNScorer's
+        # neither K1 nor K2 is on this path: the simulator is host code, the
+        # learned model trains with SAGELayer (K3 and K4 on the card, counted
+        # apart) and serves with GNNScorer
         numbers["kernel_launches"] = seen = counts()
         if any(seen.values()):
             raise AssertionError(f"the sim path launched a kernel it does not call: {seen}")
@@ -4395,6 +4645,7 @@ def main(argv: list[str] | None = None) -> int:
                 kernel_row_bwd(g.neighbors, g.mask, TRAIN.hidden, launches["neighbor_agg_bwd"],
                                usage["neighbor_agg_bwd"])]
         edge_cases()
+    rows += sage_phase(card, cluster)
 
     print(f"chip_smoke: every phase in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -62,6 +62,45 @@
 // writes 0. There are no atomics, no workspace and no cast pass, and every gh
 // element is summed in the same order on every launch: K2 is deterministic.
 
+// K3 and K4 are the SAGE message path of models/graphsage.SAGELayer, fused,
+// forward and backward (ops/sage_message.py). They replace no TPU kernel: the
+// JAX package's SAGELayer leaves the path to XLA, which fuses it on the TPU,
+// while the port's plain path runs it as a gather, a dozen elementwise passes
+// and a reduction over [N, K, H] tensors in device memory. K3 computes
+//
+//     agg[n] = bf16(bf16(sum_k bf16(gelu(x[n,k]) * m[n,k])) / bf16(bf16(sum_k m[n,k]) + eps)),
+//     x[n,k] = bf16(bf16(u[nbr[n,k]] + s[n]) + bf16(sum_d e[n,k,d] * We[:,d]))
+//
+// with u, s and We in bf16, e and the mask rounded to bf16 as the plain path
+// casts them, and every op of the tanh-GELU (ops/gelu.py) rounded to bf16 where
+// torch rounds it on the card: the same result as the plain path, but for the
+// order of the f32 sums (over k, and the E products of the edge term). K4
+// gives the gradients with respect to u, s and We, every op as the plain
+// path's autograd rounds it: the mean's divide, the mask's product, the GELU's
+// VJP op for op, g_s = sum over k, g_We = sum over slots of dx * e, g_u = the
+// f32 sum of dx over the slots that name each row.
+//
+// What bounds them on an H100: instructions. K3 must read u, s and the graph
+// and write agg, about 57 MB at N=16384, K=16, H=512 (17 us at 3.35 TB/s),
+// and gather a u row from L2 for each live slot; but each element of
+// [N, K, H] costs some 60 instructions (each op with its rounding, the
+// precise tanhf), about 0.18 ms for 10^8 live elements at one instruction a
+// lane a clock. K4 recomputes the forward's elements and adds the VJP's, some
+// 110 instructions an element. The design keeps the elements out of device
+// memory: one warp owns one row and 256 channels (8 a lane, one 16-byte load),
+// finds the row's live slots by ballot and walks them with two gathered u rows
+// in flight, as K1 does, and computes the edge term from e[n,k,:E] and a
+// shared-memory copy of We instead of reading a [N, K, H] product. K3 writes
+// agg alone. K4's first pass walks the rows with a fixed set of blocks, writes
+// g_s, keeps g_We's sums in registers (one f32 partial a block, summed in a
+// second small pass in block order) and writes the per-edge gradient dx once
+// in bf16; K2's gather then sums dx over a transposed index of the live slots
+// into g_u, in f32, in entry order. dx's round trip (N*K*H*2 bytes each way,
+// about 0.08 ms a way at the shape above) was chosen over computing dx twice,
+// in row order for g_s and g_We and in destination order for g_u, which would
+// pay the VJP's instructions again (about 0.33 ms); both are estimates, not
+// measured side by side. No atomics: every launch gives the same bits.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -218,7 +257,9 @@ neighbor_agg_fwd_kernel(const T* __restrict__ h, const int* __restrict__ nbr,
   if (active) Vec<T, VEC>::store(out + static_cast<size_t>(row) * hdim + static_cast<size_t>(v) * VEC, acc, denom);
 }
 
-template <typename T, int VEC>
+// kUnit: every entry weighs 1 and `weight` is not read (K4's gather of the
+// per-edge gradient, whose entries name rows of that gradient, not nodes).
+template <typename T, int VEC, bool kUnit = false>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSM)
 neighbor_agg_bwd_kernel(const T* __restrict__ g, const int* __restrict__ indptr,
                         const int* __restrict__ src, const float* __restrict__ weight,
@@ -237,7 +278,7 @@ neighbor_agg_bwd_kernel(const T* __restrict__ g, const int* __restrict__ indptr,
   for (int e0 = begin; e0 < end; e0 += 32) {
     const int e = e0 + lane;
     const int my_src = e < end ? src[e] : -1;
-    const float my_w = e < end ? weight[e] : 0.f;
+    const float my_w = e < end ? (kUnit ? 1.f : weight[e]) : 0.f;
     gather_batches<T, VEC>(base, hdim, my_src, my_w, min(32, end - e0), active, acc);
   }
   // Divided by 1, which leaves every sum as it is.
@@ -272,19 +313,372 @@ cudaError_t launch_fwd(const void* h, const int* nbr, const float* mask, void* o
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kUnit = false>
 cudaError_t launch_bwd(const void* g, const int* indptr, const int* src, const float* weight, void* gh, int n,
                        int hdim, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const dim3 block(kWarpsPerBlock * 32);
   if (vector_ok<T>(hdim, g, gh))
-    neighbor_agg_bwd_kernel<T, kVec><<<grid_for<kVec>(n, hdim), block, 0, stream>>>(
+    neighbor_agg_bwd_kernel<T, kVec, kUnit><<<grid_for<kVec>(n, hdim), block, 0, stream>>>(
         static_cast<const T*>(g), indptr, src, weight, static_cast<T*>(gh), n, hdim);
   else
-    neighbor_agg_bwd_kernel<T, 1><<<grid_for<1>(n, hdim), block, 0, stream>>>(
+    neighbor_agg_bwd_kernel<T, 1, kUnit><<<grid_for<1>(n, hdim), block, 0, stream>>>(
         static_cast<const T*>(g), indptr, src, weight, static_cast<T*>(gh), n, hdim);
   return cudaGetLastError();
 }
+
+
+// ---------------------------------------------------------------------------
+// K3 and K4: the SAGE message path of models/graphsage.SAGELayer, fused.
+
+constexpr int kSageVec = 8;                   // bf16 channels a lane owns: one 16-byte load
+constexpr int kSageChunk = 32 * kSageVec;     // channels a warp covers: 256
+constexpr int kMaxEdge = 4;                   // edge features a slot may carry
+constexpr float kGeluC = 0.796875f;           // sqrt(2/pi) rounded to bf16, as ops/gelu.py's _constants gives it
+constexpr float kGeluK = 0.044677734375f;     // 0.044715 rounded to bf16
+constexpr float kMeanEps = 1e-6f;             // masked_mean's eps, as the plain path's f32 op sees it
+// Blocks of 4 warps a multiprocessor must hold (__launch_bounds__): K3 at 6
+// keeps a thread's registers at 80 or fewer, K4's first pass at 4, 128 (it
+// holds g_We's sums, E x 8 of them, beside the forward's state).
+constexpr int kSageFwdBlocksPerSM = 6;
+constexpr int kSageBwdBlocksPerSM = 4;
+
+// x rounded to bf16 and back: every op of the plain path ends in this rounding.
+__device__ __forceinline__ float rb(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+// One f32 op, then the rounding. The _rn intrinsics are never contracted into
+// an FMA, so each product and sum rounds where the plain path's op does.
+__device__ __forceinline__ float mul_r(float a, float b) { return rb(__fmul_rn(a, b)); }
+__device__ __forceinline__ float add_r(float a, float b) { return rb(__fadd_rn(a, b)); }
+
+// tanh(c * (x + k * x^3)), ops/gelu.py's _gelu_tanh: x**3 as torch computes it
+// on the card for bf16 (x * x, rounded, times x, rounded), then each op
+// rounded, tanh with the precise tanhf.
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float x3 = mul_r(mul_r(x, x), x);
+  return rb(tanhf(mul_r(add_r(mul_r(x3, kGeluK), x), kGeluC)));
+}
+
+// _Gelu.forward: (t + 1) * 0.5 * x.
+__device__ __forceinline__ float gelu_value(float x) {
+  return mul_r(mul_r(add_r(gelu_tanh(x), 1.f), 0.5f), x);
+}
+
+// _Gelu.backward at x with incoming gradient g, op for op:
+// p = 0.5·x·g·(1 - t), s = c·(p + p·t), dx = (g·cdf + s) + k·s·3x².
+__device__ __forceinline__ float gelu_grad(float x, float g) {
+  const float t = gelu_tanh(x);
+  const float p = mul_r(mul_r(mul_r(x, g), 0.5f), rb(__fsub_rn(1.f, t)));
+  const float s = mul_r(add_r(mul_r(p, t), p), kGeluC);
+  const float dx = add_r(mul_r(g, mul_r(add_r(t, 1.f), 0.5f)), s);
+  return add_r(dx, mul_r(mul_r(s, kGeluK), mul_r(mul_r(x, x), 3.f)));
+}
+
+__device__ __forceinline__ void unpack8(const uint4& q, float (&f)[kSageVec]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 t = __bfloat1622float2(p[j]);
+    f[2 * j] = t.x;
+    f[2 * j + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[kSageVec]) {
+  uint4 q;
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) p[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+  return q;
+}
+
+// The block's chunk of We [H, E] in f32, laid out so that lane l reads the
+// weights of its 8 channels c0 = chunk*256 + 8l .. c0+7 for edge feature d as
+// two conflict-free float4 loads: w[d][half][l] holds channels c0+4*half .. +3.
+struct EdgeWeights {
+  float4 w[kMaxEdge][2][32];
+};
+
+__device__ __forceinline__ void load_edge_weights(EdgeWeights& sm, const __nv_bfloat16* __restrict__ we, int hdim,
+                                                  int edim) {
+  float* flat = reinterpret_cast<float*>(sm.w);
+  for (int i = threadIdx.x; i < kMaxEdge * kSageChunk; i += blockDim.x) {
+    const int d = i / kSageChunk, r = i % kSageChunk;  // r: the channel within the chunk
+    const int c = blockIdx.y * kSageChunk + r;
+    const int l = r / kSageVec, half = (r % kSageVec) / 4;
+    flat[((d * 2 + half) * 32 + l) * 4 + r % 4] =
+        d < edim && c < hdim ? __bfloat162float(we[static_cast<size_t>(c) * edim + d]) : 0.f;
+  }
+  __syncthreads();
+}
+
+// The edge term of this lane's channels for one slot, msg_edge's product:
+// sum_d e[d] * We[c, d] in f32 (each product of two bf16 values is exact),
+// rounded once to bf16.
+__device__ __forceinline__ void edge_term(const EdgeWeights& sm, const float (&e)[kMaxEdge], int edim,
+                                          float (&v)[kSageVec]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < kSageVec; ++j) v[j] = 0.f;
+#pragma unroll
+  for (int d = 0; d < kMaxEdge; ++d) {
+    if (d < edim) {
+      const float4 lo = sm.w[d][0][lane], hi = sm.w[d][1][lane];
+      v[0] = fmaf(e[d], lo.x, v[0]);
+      v[1] = fmaf(e[d], lo.y, v[1]);
+      v[2] = fmaf(e[d], lo.z, v[2]);
+      v[3] = fmaf(e[d], lo.w, v[3]);
+      v[4] = fmaf(e[d], hi.x, v[4]);
+      v[5] = fmaf(e[d], hi.y, v[5]);
+      v[6] = fmaf(e[d], hi.z, v[6]);
+      v[7] = fmaf(e[d], hi.w, v[7]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kSageVec; ++j) v[j] = rb(v[j]);
+}
+
+// One row's slots, one a lane (K <= 32): the neighbour row (-1 when the slot
+// is dead: its bf16 mask is 0 or its index lies outside [0, n)), the mask and
+// the edge features rounded to bf16 as the plain path casts them, the live
+// slots by ballot, and masked_mean's divisor bf16(bf16(sum_k m) + eps).
+struct RowSlots {
+  int idx;
+  float m;
+  float e[kMaxEdge];
+  unsigned live;
+  float denom;
+};
+
+__device__ __forceinline__ RowSlots load_row(const int* __restrict__ nbr, const float* __restrict__ mask,
+                                             const float* __restrict__ edge, long long row, int n, int k,
+                                             int edim) {
+  const int lane = threadIdx.x & 31;
+  const bool in = lane < k;
+  const long long slot = row * k + lane;
+  RowSlots r;
+  r.m = in ? rb(mask[slot]) : 0.f;
+  int idx = in ? nbr[slot] : -1;
+  if (r.m == 0.f || idx < 0 || idx >= n) idx = -1;
+  r.idx = idx;
+#pragma unroll
+  for (int d = 0; d < kMaxEdge; ++d) r.e[d] = in && d < edim ? rb(edge[slot * edim + d]) : 0.f;
+  float count = r.m;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFullMask, count, off);
+  r.denom = add_r(rb(count), kMeanEps);
+  r.live = __ballot_sync(kFullMask, idx >= 0);
+  return r;
+}
+
+// The pre-activation of one live slot for this lane's channels:
+// bf16(bf16(u[nbr] + s) + v), v the slot's edge term.
+__device__ __forceinline__ void preact(const EdgeWeights& sm, const uint4& urow, const float (&sv)[kSageVec],
+                                       const float (&e)[kMaxEdge], int edim, float (&x)[kSageVec]) {
+  float uv[kSageVec], v[kSageVec];
+  unpack8(urow, uv);
+  edge_term(sm, e, edim, v);
+#pragma unroll
+  for (int j = 0; j < kSageVec; ++j) x[j] = add_r(add_r(uv[j], sv[j]), v[j]);
+}
+
+// K3: agg[n] = bf16(bf16(sum_k bf16(gelu(x[n,k]) * m[n,k])) / denom[n]), with
+// the sum over the live slots in slot order in f32. One warp a row and a chunk
+// of 256 channels (blockIdx.y), four rows a block; the live slots are walked
+// by ballot with kBatch gathered u rows in flight, as in K1.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kSageFwdBlocksPerSM)
+sage_message_fwd_kernel(const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ s,
+                        const __nv_bfloat16* __restrict__ we, const float* __restrict__ edge,
+                        const int* __restrict__ nbr, const float* __restrict__ mask,
+                        __nv_bfloat16* __restrict__ out, int n, int k, int hdim, int edim) {
+  __shared__ EdgeWeights wsm;
+  load_edge_weights(wsm, we, hdim, edim);
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= n) return;  // whole warps only, after the block's last barrier
+  const RowSlots r = load_row(nbr, mask, edge, row, n, k, edim);
+  const int c0 = blockIdx.y * kSageChunk + lane * kSageVec;
+  const bool active = c0 < hdim;  // hdim is a multiple of 8: all of the lane's channels or none
+  float sv[kSageVec], acc[kSageVec];
+#pragma unroll
+  for (int j = 0; j < kSageVec; ++j) sv[j] = acc[j] = 0.f;
+  if (active) unpack8(__ldg(reinterpret_cast<const uint4*>(s + row * hdim + c0)), sv);
+
+  unsigned live = r.live;
+  while (live) {  // warp-uniform: shuffles need every lane
+    uint4 buf[kBatch];
+    int from[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      from[b] = __ffs(live) - 1;  // the next live slot, -1 once none is left
+      live &= live - 1;
+      const int idx = __shfl_sync(kFullMask, r.idx, from[b] & 31);
+      if (active && from[b] >= 0)
+        buf[b] = __ldg(reinterpret_cast<const uint4*>(u + static_cast<size_t>(idx) * hdim + c0));
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (from[b] < 0) break;
+      const float m = __shfl_sync(kFullMask, r.m, from[b]);
+      float e[kMaxEdge];
+#pragma unroll
+      for (int d = 0; d < kMaxEdge; ++d) e[d] = __shfl_sync(kFullMask, r.e[d], from[b]);
+      if (active) {
+        float x[kSageVec];
+        preact(wsm, buf[b], sv, e, edim, x);
+#pragma unroll
+        for (int j = 0; j < kSageVec; ++j) acc[j] = __fadd_rn(acc[j], mul_r(gelu_value(x[j]), m));
+      }
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < kSageVec; ++j) acc[j] = rb(__fdiv_rn(rb(acc[j]), r.denom));
+    *reinterpret_cast<uint4*>(out + row * hdim + c0) = pack8(acc);
+  }
+}
+
+// K4, first pass, in row order: for each live slot the gradient of its
+// pre-activation, dx = gelu'(x; bf16(bf16(G[n] / denom) * m)), recomputed from
+// the forward's inputs and written once in bf16 to dx[n*K + k]; g_s[n] =
+// bf16(sum_k dx); and this block's f32 partial of g_We[c, d] = sum dx[c]·e[d].
+// A fixed set of blocks walks the rows (row += gridDim.x * 4 for each warp),
+// so the partials are few; each warp keeps its sums over its rows in
+// registers, and the block adds its four warps' in a fixed order.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kSageBwdBlocksPerSM)
+sage_message_bwd_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ u,
+                        const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ we,
+                        const float* __restrict__ edge, const int* __restrict__ nbr,
+                        const float* __restrict__ mask, __nv_bfloat16* __restrict__ dx,
+                        __nv_bfloat16* __restrict__ gs, float* __restrict__ partial, int n, int k, int hdim,
+                        int edim) {
+  __shared__ EdgeWeights wsm;
+  __shared__ float red[kWarpsPerBlock][kMaxEdge][kSageChunk];
+  load_edge_weights(wsm, we, hdim, edim);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.y * kSageChunk + lane * kSageVec;
+  const bool active = c0 < hdim;
+  float gw[kMaxEdge][kSageVec];
+#pragma unroll
+  for (int d = 0; d < kMaxEdge; ++d)
+#pragma unroll
+    for (int j = 0; j < kSageVec; ++j) gw[d][j] = 0.f;
+
+  for (long long row = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp; row < n;
+       row += static_cast<long long>(gridDim.x) * kWarpsPerBlock) {
+    const RowSlots r = load_row(nbr, mask, edge, row, n, k, edim);
+    float gt[kSageVec], sv[kSageVec], gsum[kSageVec];
+#pragma unroll
+    for (int j = 0; j < kSageVec; ++j) gt[j] = sv[j] = gsum[j] = 0.f;
+    if (active) {
+      unpack8(__ldg(reinterpret_cast<const uint4*>(g + row * hdim + c0)), gt);
+      unpack8(__ldg(reinterpret_cast<const uint4*>(s + row * hdim + c0)), sv);
+#pragma unroll
+      for (int j = 0; j < kSageVec; ++j) gt[j] = rb(__fdiv_rn(gt[j], r.denom));  // the mean's divide
+    }
+    unsigned live = r.live;
+    while (live) {
+      uint4 buf[kBatch];
+      int from[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        from[b] = __ffs(live) - 1;
+        live &= live - 1;
+        const int idx = __shfl_sync(kFullMask, r.idx, from[b] & 31);
+        if (active && from[b] >= 0)
+          buf[b] = __ldg(reinterpret_cast<const uint4*>(u + static_cast<size_t>(idx) * hdim + c0));
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (from[b] < 0) break;
+        const float m = __shfl_sync(kFullMask, r.m, from[b]);
+        float e[kMaxEdge];
+#pragma unroll
+        for (int d = 0; d < kMaxEdge; ++d) e[d] = __shfl_sync(kFullMask, r.e[d], from[b]);
+        if (active) {
+          float x[kSageVec];
+          preact(wsm, buf[b], sv, e, edim, x);
+#pragma unroll
+          for (int j = 0; j < kSageVec; ++j) {
+            x[j] = gelu_grad(x[j], mul_r(gt[j], m));  // the mask's product, then GELU's VJP
+            gsum[j] = __fadd_rn(gsum[j], x[j]);
+#pragma unroll
+            for (int d = 0; d < kMaxEdge; ++d)
+              if (d < edim) gw[d][j] = fmaf(x[j], e[d], gw[d][j]);
+          }
+          *reinterpret_cast<uint4*>(dx + (static_cast<size_t>(row) * k + from[b]) * hdim + c0) = pack8(x);
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < kSageVec; ++j) gsum[j] = rb(gsum[j]);
+      *reinterpret_cast<uint4*>(gs + row * hdim + c0) = pack8(gsum);
+    }
+  }
+
+#pragma unroll
+  for (int d = 0; d < kMaxEdge; ++d)
+#pragma unroll
+    for (int j = 0; j < kSageVec; ++j) red[warp][d][lane * kSageVec + j] = gw[d][j];
+  __syncthreads();
+  for (int i = threadIdx.x; i < kMaxEdge * kSageChunk; i += blockDim.x) {
+    const int d = i / kSageChunk, r = i % kSageChunk, c = blockIdx.y * kSageChunk + r;
+    if (d < edim && c < hdim) {
+      float t = red[0][d][r];
+#pragma unroll
+      for (int w = 1; w < kWarpsPerBlock; ++w) t += red[w][d][r];
+      partial[(static_cast<size_t>(blockIdx.x) * hdim + c) * edim + d] = t;
+    }
+  }
+}
+
+// K4, second pass: g_We[i] = bf16(sum over the first pass's blocks of their
+// partials), in block order, one thread an entry of [H, E].
+__global__ void sage_weight_grad_kernel(const float* __restrict__ partial, __nv_bfloat16* __restrict__ gw,
+                                        int blocks, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float t = 0.f;
+  for (int b = 0; b < blocks; ++b) t += partial[static_cast<size_t>(b) * count + i];
+  gw[i] = __float2bfloat16_rn(t);
+}
+
+// Rows of blocks K4's first pass runs: as many as the card holds at once
+// across its chunks of H, and no more than its rows of four warps.
+int sage_bwd_blocks(int n, int hdim, int device) {
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sage_message_bwd_kernel, kWarpsPerBlock * 32, 0) !=
+          cudaSuccess)
+    return -1;
+  const int chunks = (hdim + kSageChunk - 1) / kSageChunk;
+  const int rows = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int fit = sms * per_sm / chunks;
+  return fit < 1 ? 1 : (fit < rows ? fit : rows);
+}
+
+// Makes `device` the calling thread's device for the launches in its scope
+// and puts the caller's back after them; where `device` is current already,
+// as it is on one card, it costs one cudaGetDevice.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    int cur = 0;
+    err_ = cudaGetDevice(&cur);
+    if (err_ == cudaSuccess && cur != device) {
+      err_ = cudaSetDevice(device);
+      if (err_ == cudaSuccess) prev_ = cur;
+    }
+  }
+  ~DeviceScope() {
+    if (prev_ >= 0) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = -1;
+  cudaError_t err_ = cudaSuccess;
+};
 
 }  // namespace
 
@@ -324,6 +718,67 @@ int df_neighbor_agg_bwd(const void* g, const int* indptr, const int* src, const 
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K3. u and s are [n, hdim], we [hdim, edim], all bfloat16; edge is [n, k, edim]
+// and mask [n, k] float32, nbr [n, k] int32; out [n, hdim] bfloat16. hdim must be
+// a multiple of 8 and u, s and out 16-byte aligned; 1 <= k <= 32 and
+// 1 <= edim <= 4. `device` is the tensors' card and `stream` one of its
+// streams. Returns cudaGetLastError() after the launch (0 on success).
+int df_sage_message_fwd(const void* u, const void* s, const void* we, const float* edge, const int* nbr,
+                        const float* mask, void* out, int n, int k, int hdim, int edim, int device, void* stream) {
+  if (n < 0 || k < 1 || k > 32 || hdim < 0 || hdim % kSageVec != 0 || edim < 1 || edim > kMaxEdge)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || hdim == 0) return static_cast<int>(cudaSuccess);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock, (hdim + kSageChunk - 1) / kSageChunk);
+  sage_message_fwd_kernel<<<grid, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(s),
+      static_cast<const __nv_bfloat16*>(we), edge, nbr, mask, static_cast<__nv_bfloat16*>(out), n, k, hdim, edim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of blocks K4's first pass runs at (n, hdim) on `device`: the first
+// dimension of its f32 partials [blocks, hdim, edim]. -1 on an error.
+int df_sage_message_bwd_blocks(int n, int hdim, int device) {
+  const DeviceScope scope(device);
+  return scope.error() == cudaSuccess ? sage_bwd_blocks(n, hdim, device) : -1;
+}
+
+// K4, three launches on `stream`: the first pass (g_s, dx and the partials),
+// g_We from the partials, then g_u[j] = bf16(sum of dx over j's entries of
+// the transposed index) by K2's gather with unit weights. g is the gradient
+// of K3's output; the inputs are K3's. indptr [n+1] and slot [n*k] are the
+// index (row j's entries [indptr[j], indptr[j+1]) name the live slots i*k+kk
+// with nbr = j); dx [n*k, hdim] bfloat16 is scratch, only its live rows are
+// written; partial is [blocks, hdim, edim] float32, blocks as
+// df_sage_message_bwd_blocks gives it. gu and gs are [n, hdim], gw [hdim, edim],
+// all bfloat16; `device` and `stream` as for K3. Returns the first launch
+// error (0 on success).
+int df_sage_message_bwd(const void* g, const void* u, const void* s, const void* we, const float* edge,
+                        const int* nbr, const float* mask, const int* indptr, const int* slot, void* dx,
+                        float* partial, int blocks, void* gu, void* gs, void* gw, int n, int k, int hdim,
+                        int edim, int device, void* stream) {
+  if (n < 0 || k < 1 || k > 32 || hdim < 0 || hdim % kSageVec != 0 || edim < 1 || edim > kMaxEdge || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || hdim == 0) return static_cast<int>(cudaSuccess);
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(blocks, (hdim + kSageChunk - 1) / kSageChunk);
+  sage_message_bwd_kernel<<<grid, kWarpsPerBlock * 32, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(u),
+      static_cast<const __nv_bfloat16*>(s), static_cast<const __nv_bfloat16*>(we), edge, nbr, mask,
+      static_cast<__nv_bfloat16*>(dx), static_cast<__nv_bfloat16*>(gs), partial, n, k, hdim, edim);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int count = hdim * edim;
+  sage_weight_grad_kernel<<<(count + 255) / 256, 256, 0, st>>>(partial, static_cast<__nv_bfloat16*>(gw), blocks,
+                                                                count);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_bwd<__nv_bfloat16, true>(dx, indptr, slot, nullptr, gu, n, hdim, st));
 }
 
 const char* df_cuda_error_string(int code) {

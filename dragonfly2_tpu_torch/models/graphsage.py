@@ -16,7 +16,6 @@ models/weights.py maps one onto the other by name alone.
 
 from __future__ import annotations
 
-import math
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -28,7 +27,8 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from dragonfly2_tpu_torch.models.features import EDGE_FEATURE_DIM, FEATURE_DIM, NODE_FEATURE_DIM
 from dragonfly2_tpu_torch.observability.tracing import stage
-from dragonfly2_tpu_torch.ops.neighbor_agg import masked_mean, neighbor_gather
+from dragonfly2_tpu_torch.ops import sage_message
+from dragonfly2_tpu_torch.ops.gelu import gelu
 
 
 class TopoGraph(NamedTuple):
@@ -48,55 +48,6 @@ class TopoGraph(NamedTuple):
     def to(self, device: str | torch.device) -> "TopoGraph":
         """The same graph as tensors on ``device``."""
         return TopoGraph(*(torch.as_tensor(a).to(device) for a in self))
-
-
-def _constants(dtype: torch.dtype) -> tuple[float, float]:
-    """sqrt(2/pi) and 0.044715 rounded to ``dtype``, as jax.nn.gelu casts them."""
-    return tuple(float(torch.tensor(c, dtype=dtype)) for c in (math.sqrt(2 / math.pi), 0.044715))
-
-
-def _gelu_tanh(x: torch.Tensor, c: float, k: float) -> torch.Tensor:
-    """tanh(c * (x + k * x**3)), each op rounded to x's dtype, in one buffer."""
-    return (x**3).mul_(k).add_(x).mul_(c).tanh_()
-
-
-class _Gelu(torch.autograd.Function):
-    """jax.nn.gelu(approximate=True) op for op, in x's dtype:
-    ``x * (0.5 * (1 + tanh(c * (x + k * x**3))))`` with every op rounded to
-    that dtype, and a backward that is JAX's own VJP of it, op for op (its
-    jaxpr: ``p = 0.5·x·g·(1 - t)``, ``s = c·(p + p·t)``, ``dx = (g·cdf + s)
-    + k·s·3x²``). In bf16, tanh rounds to -1 for x <= -3.06, so the value
-    and the gradient are exactly 0 there, as in JAX; torch's fused
-    ``F.gelu`` works in f32 inside and leaves about 1e-7 of the gradient
-    down to -5.03, which Adam turns into full steps on a saturated unit.
-    Only x is kept for the backward, which recomputes the rest; the ops run
-    in place where an operand is not needed again (the same roundings,
-    fewer temporaries)."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(x)
-        c, k = _constants(x.dtype)
-        return _gelu_tanh(x, c, k).add_(1.0).mul_(0.5).mul_(x)
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
-        (x,) = ctx.saved_tensors
-        c, k = _constants(x.dtype)
-        # in place only into buffers that came from g: on a mesh g may hold
-        # partial sums, which a buffer from x cannot take in place
-        t = _gelu_tanh(x, c, k)
-        p = (x * g).mul_(0.5).mul_(torch.sub(1.0, t))  # 0.5·x·g·(1 - t)
-        s = (p * t).add_(p).mul_(c)  # c·(p + p·t)
-        del p
-        dx = (g * t.add_(1.0).mul_(0.5)).add_(s)  # g·cdf + s
-        return dx.add_(s.mul_(k).mul_((x * x).mul_(3.0)))
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.gelu``: the tanh approximation, in x's dtype, with JAX's
-    roundings and JAX's gradient (``_Gelu``)."""
-    return _Gelu.apply(x)
 
 
 class GELU(nn.Module):
@@ -193,21 +144,20 @@ class SAGELayer(nn.Module):
         self.Dense_0 = Dense(in_features, features, dtype=dtype)
         self.LayerNorm_0 = LayerNorm(features, dtype=dtype)
 
-    def forward(self, h: torch.Tensor, g: TopoGraph) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, g: TopoGraph, graph: sage_message.Graph | None = None) -> torch.Tensor:
+        """``graph``: g's side of the fused op, prepared once an encoder call
+        (``GraphSAGE.forward`` passes one; a layer called alone makes its own)."""
         h = h.to(self.dtype)
         u = self.msg_nbr(h)
         s = self.msg_self(h)
-        v = self.msg_edge(g.edge_feats.to(self.dtype))
-        # gathered in f32 (exact) and rounded back: the gather's backward then
-        # sums each row's gradient over its neighbour slots in f32, where a
-        # bf16 index_add would round at every add, and on a mesh in another
-        # order across "data" shards than on one device
-        with stage("gnn.sage.gather"):
-            nbr = neighbor_gather(u.float(), g.neighbors).to(self.dtype)
-        with stage("gnn.sage.message"):
-            msg = gelu(nbr + s[:, None, :] + v)  # [N, K, F]
-        with stage("gnn.sage.mean"):
-            agg = masked_mean(msg, g.mask.to(self.dtype))  # [N, F]
+        graph = graph or sage_message.Graph(g.edge_feats, g.neighbors, g.mask)
+        if graph.takes(u, s, self.msg_edge.weight):
+            # the card: the message path as one op, K3 forward and K4 backward
+            with stage("gnn.sage.message"):
+                agg = sage_message.fused(u, s, self.msg_edge.weight, graph)
+        else:
+            v = self.msg_edge(g.edge_feats.to(self.dtype))
+            agg = sage_message.message_path(u, s, v, g.neighbors, g.mask)  # [N, F]
         out = gelu(self.Dense_0(h) + agg)
         return self.LayerNorm_0(out)
 
@@ -227,8 +177,10 @@ class GraphSAGE(nn.Module):
 
     def forward(self, g: TopoGraph) -> torch.Tensor:
         h = self.Dense_0(g.node_feats)
+        # the fused op's side of g, checked, cast and (K4's index) built once for every layer
+        graph = sage_message.Graph(g.edge_feats, g.neighbors, g.mask)
         for i in range(self.num_layers):
-            h = getattr(self, f"SAGELayer_{i}")(h, g)
+            h = getattr(self, f"SAGELayer_{i}")(h, g, graph)
         z = self.Dense_1(h).float()
         return z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + 1e-6)
 

@@ -104,13 +104,23 @@ def transpose_index(
     nbr = neighbors.to(torch.int32)
     w = mask.float()
     k = nbr.shape[1]
-    live = (w != 0) & (nbr >= 0) & (nbr < n)
+    indptr, order = live_order(nbr, w != 0, n)
+    scale = (w / (torch.sum(w, dim=1, keepdim=True) + eps)).reshape(-1)
+    return TransposedIndex(indptr, torch.div(order, max(k, 1), rounding_mode="floor").to(torch.int32), scale[order])
+
+
+def live_order(nbr: torch.Tensor, nonzero: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sort and search under a transposed index: of the slots of
+    ``nbr`` [N, K] int32, the live ones (``nonzero`` [N, K] and 0 <= nbr <
+    n) by destination row, stable in flat slot order, the rest after them.
+    Returns ``indptr`` [n + 1] int32 (row j's entries are order[indptr[j]:
+    indptr[j+1]]) and ``order`` [N * K] int64, the flat slots. No host
+    sync."""
+    live = nonzero & (nbr >= 0) & (nbr < n)
     key = torch.where(live, nbr, n).reshape(-1)
     sorted_key, order = torch.sort(key, stable=True)
     rows = torch.arange(n + 1, dtype=torch.int32, device=key.device)
-    indptr = torch.searchsorted(sorted_key, rows, out_int32=True)
-    scale = (w / (torch.sum(w, dim=1, keepdim=True) + eps)).reshape(-1)
-    return TransposedIndex(indptr, torch.div(order, max(k, 1), rounding_mode="floor").to(torch.int32), scale[order])
+    return torch.searchsorted(sorted_key, rows, out_int32=True), order
 
 
 def neighbor_aggregate_bwd_index_torch(g: torch.Tensor, index: TransposedIndex) -> torch.Tensor:

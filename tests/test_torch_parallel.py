@@ -59,7 +59,7 @@ JAX_LOSS_ABS, JAX_PARAM_ABS = 1e-3, 1e-2
 # FLOOR_SHARE of the elements may lie on the floor.
 GRAD_FLOOR, FLOOR_SHARE = 1e-4, 0.02
 # On one device, with tanh-GELU's value and gradient JAX's op for op
-# (models/graphsage.py ``_Gelu``), the port's gradient is 0 wherever JAX's
+# (ops/gelu.py ``_Gelu``), the port's gradient is 0 wherever JAX's
 # is, and every parameter, on the floor or off it, ends within
 # JAX_ONE_DEVICE_ABS of JAX's (3.6e-3 at most on these inputs; 1.096e-2,
 # on four floor elements, with torch's fused F.gelu).
