@@ -4341,8 +4341,10 @@ def sage_row(cluster, hdim: int, usage: dict) -> dict:
 
 def sage_paths(cluster) -> dict:
     """K3 and K4's launches on the train path (one make_multi_step call at
-    the full-cluster widths, after a warm-up call) and on the refresh path
-    (one GNNScorer.refresh at the serving widths, after a warm-up one)."""
+    the full-cluster widths, after a warm-up call: the call that captures
+    the CUDA graph, whose launches the graph's replays repeat) and on the
+    refresh path (one GNNScorer.refresh at the serving widths, after a
+    warm-up one)."""
     state = train_gnn.init_state(TRAIN, rng_seed=WEIGHT_SEED, device="cuda")
     multi = train_gnn.make_multi_step(state, cluster.graph, cluster.pairs, batch_size=TRAIN.batch_size,
                                       steps_per_call=STEPS_PER_CALL)

@@ -17,6 +17,7 @@ inserts from the JAX package's sharding annotations.
 from __future__ import annotations
 
 import asyncio
+import functools
 import math
 import time
 from dataclasses import dataclass
@@ -77,6 +78,33 @@ def warmup_cosine_decay_schedule(
     return schedule
 
 
+DECAY_STEPS = 20_000  # the trainer's schedule ends its cosine here (``make_optimizer``)
+
+
+@functools.cache
+def _bias_corrections(b: float) -> tuple[float, ...]:
+    """``ClippedAdamW._bias_correction(b, count)`` for count 0, 1, ... up to
+    the first that rounds to 1 in float32, after which every one does
+    (``b**t`` only falls). One scalar op a count, as the host computed
+    them a step at a time: torch's vectorised pow rounds a few counts
+    differently."""
+    out = [ClippedAdamW._bias_correction(b, 0)]
+    while out[-1] != 1.0:
+        out.append(ClippedAdamW._bias_correction(b, len(out)))
+    return tuple(out)
+
+
+def _step_table(schedule: Callable[[int], float], settles_at: int, b1: float, b2: float) -> torch.Tensor:
+    """``[L, 3]`` float32 on the host: row ``count`` holds ``schedule(count)``
+    and the bias corrections of b1 and b2 at ``count``, for every count up
+    to where all three stop changing (``settles_at`` for the schedule); a
+    later count reads the last row."""
+    c1, c2 = _bias_corrections(b1), _bias_corrections(b2)
+    n = max(settles_at + 1, len(c1), len(c2))
+    return torch.tensor([(schedule(i), c1[min(i, len(c1) - 1)], c2[min(i, len(c2) - 1)]) for i in range(n)],
+                        dtype=torch.float32)
+
+
 class ClippedAdamW:
     """``optax.chain(clip_by_global_norm(1.0), adamw(schedule, weight_decay))``
     over torch parameters, written out with ``torch._foreach_*`` ops.
@@ -97,6 +125,13 @@ class ClippedAdamW:
     first steps' updates by 6e-6 against torch's float64 corrections. Here
     they are float32 too. Nothing reads a device value on the host.
 
+    The learning rate and both corrections are device values, read from
+    ``table`` (``_step_table``: a row a step count, worked out once on the
+    host with the arithmetic above) at the step's count, so that an update
+    captured in a CUDA graph takes each replay's count from device memory
+    and an eager update runs the same ops on the same numbers.
+    ``settles_at`` is the count from which ``schedule`` no longer changes.
+
     On a mesh the parameters are DTensors and ``mu``/``nu`` are DTensors of
     the same placements (``zeros_like``), as JAX gives every optimizer leaf
     its parameter's sharding. A gradient comes back from autograd in
@@ -114,25 +149,41 @@ class ClippedAdamW:
     b1, b2, eps = 0.9, 0.999, 1e-8  # optax's adam and adamw defaults
 
     def __init__(self, params, schedule: Callable[[int], float], *, weight_decay: float,
-                 max_norm: float | None = 1.0):
+                 max_norm: float | None = 1.0, settles_at: int):
         self.params = [p for p in params if p.requires_grad]
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.max_norm = max_norm
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        self.table = _step_table(schedule, settles_at, self.b1, self.b2).to(
+            self.params[0].device if self.params else "cpu")
 
     @staticmethod
     def _bias_correction(b: float, count: int) -> float:
         """``1 - b**(count + 1)`` in float32, as optax's ``bias_correction``."""
         return float(1 - torch.tensor(b, dtype=torch.float32) ** torch.tensor(count + 1, dtype=torch.float32))
 
+    def at(self, count: int | torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The learning rate and the two bias corrections at ``count`` as f32
+        scalars on the table's device: a view of ``table``'s row for an int,
+        a gather for a device integer scalar (what a captured step reads, so
+        that each replay takes the count from device memory). Counts past
+        the table's end read its last row."""
+        last = self.table.shape[0] - 1
+        if isinstance(count, torch.Tensor):
+            row = self.table.index_select(0, count.reshape(1).clamp(max=last))[0]
+        else:
+            row = self.table[min(count, last)]
+        return row.unbind(0)
+
     @torch.no_grad()
-    def step(self, count: int) -> torch.Tensor:
+    def step(self, count: int | torch.Tensor) -> torch.Tensor:
         """Clip the parameters' ``.grad`` and take one AdamW step at
-        ``schedule(count)``. Returns the pre-clip global gradient norm
-        (``optax.global_norm``), a float32 scalar on the parameters' device
-        (this rank's, on a mesh)."""
+        ``schedule(count)``. ``count`` is the number of steps taken before:
+        an int, or an integer scalar on the parameters' device (``at``).
+        Returns the pre-clip global gradient norm (``optax.global_norm``), a
+        float32 scalar on the parameters' device (this rank's, on a mesh)."""
         params, mu, nu = self.params, self.mu, self.nu
         grads = [p.grad for p in params]
         if isinstance(params[0], DTensor):
@@ -145,17 +196,19 @@ class ClippedAdamW:
             # 1 below the threshold, ‖g‖/max_norm at or above it: optax's select
             denom = torch.clamp(gnorm / self.max_norm, min=1.0)
             grads = [g / denom for g in grads]
+        lr, c1, c2 = self.at(count)
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
-        mu_hat = torch._foreach_div(mu, self._bias_correction(self.b1, count))
-        den = torch._foreach_div(nu, self._bias_correction(self.b2, count))
+        mu_hat = torch._foreach_div(mu, c1)
+        den = torch._foreach_div(nu, c2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         update = torch._foreach_div(mu_hat, den)
         torch._foreach_add_(update, params, alpha=self.weight_decay)
-        torch._foreach_add_(params, update, alpha=-self.schedule(count))
+        torch._foreach_mul_(update, lr)
+        torch._foreach_sub_(params, update)
         return gnorm
 
     def _sharded_global_norm(self, local_grads: list[torch.Tensor]) -> torch.Tensor:
@@ -193,9 +246,9 @@ class ClippedAdamW:
 def make_optimizer(cfg: GNNTrainConfig, params) -> ClippedAdamW:
     """The optax chain of ``init_state`` (``train_gnn.py:61-69``) over ``params``."""
     schedule = warmup_cosine_decay_schedule(
-        0.0, cfg.learning_rate, cfg.warmup_steps, 20_000, cfg.learning_rate * 0.05
+        0.0, cfg.learning_rate, cfg.warmup_steps, DECAY_STEPS, cfg.learning_rate * 0.05
     )
-    return ClippedAdamW(params, schedule, weight_decay=cfg.weight_decay)
+    return ClippedAdamW(params, schedule, weight_decay=cfg.weight_decay, settles_at=DECAY_STEPS)
 
 
 @dataclass
@@ -285,10 +338,12 @@ def make_train_step(remat: bool = False, *, with_metrics: bool = False) -> Calla
     ``shard_for_training`` placed it); ``batch`` is a PairBatch of numpy
     arrays or of tensors (on a mesh: the global batch, or DTensors placed
     already). The loss and norm are device scalars (this rank's, on a
-    mesh): nothing waits for the device.
+    mesh): nothing waits for the device. ``step(..., count=c)`` hands the
+    optimizer ``c`` in place of ``state.step`` (``ClippedAdamW.at``: a
+    device scalar, where a captured call replays the step).
     """
 
-    def step(state: TrainState, g: TopoGraph, batch: PairBatch):
+    def step(state: TrainState, g: TopoGraph, batch: PairBatch, *, count: torch.Tensor | None = None):
         batch = _place_batch(batch, g, state)
         model = state.model
         if remat:
@@ -304,7 +359,7 @@ def make_train_step(remat: bool = False, *, with_metrics: bool = False) -> Calla
         with stage("gnn.train.backward"):
             loss.backward()
         with stage("gnn.train.optimizer"):
-            gnorm = state.optimizer.step(state.step)
+            gnorm = state.optimizer.step(state.step if count is None else count)
         state.step += 1
         loss = loss.detach()
         if state.mesh is not None:
@@ -428,10 +483,19 @@ def make_multi_step(
     drawing each batch's pool rows with a ``torch.Generator`` on the device
     seeded from ``seed``; ``losses`` is a ``[steps_per_call]`` f32 tensor on
     the device, and with ``with_metrics`` the second value is ``(losses,
-    grad_norms)``. Nothing returns to the host between steps; the caller
-    pulls a call's values once. The generator's numbers differ from
-    ``jax.random``'s: the distribution of batches is the same, the batches
-    are not.
+    grad_norms)``, each call's its own. Nothing returns to the host between
+    steps; the caller pulls a call's values once. The generator's numbers
+    differ from ``jax.random``'s: the distribution of batches is the same,
+    the batches are not.
+
+    On one CUDA device (plain tensors, no mesh) the call is a
+    CUDA graph (``_GraphedCall``): the first call runs eagerly, the second
+    captures the whole call (sampling, forward, backward, clip, AdamW and
+    the writes of its losses and norms) and replays it, every later call
+    replays it. A replay draws the rows the eager steps would draw, in the
+    same order, and computes what they would compute; it frees the host
+    from the step's ~1000 launches, so the card sets the pace. The
+    multi-step then serves only the state it was made with.
 
     On a mesh (a state from ``_place_sharded``) the graph is row-sharded
     and the pool replicated: every rank seeds its generator alike, draws the
@@ -448,9 +512,10 @@ def make_multi_step(
     gen.manual_seed(seed)
     lo, hi = (0, batch_size) if state.mesh is None else dist_lib.local_row_slice(batch_size, state.mesh)
 
-    def multi_step(st: TrainState):
-        losses = torch.empty(steps_per_call, dtype=torch.float32, device=dev)
-        norms = torch.empty(steps_per_call, dtype=torch.float32, device=dev)
+    def steps(st: TrainState, out: torch.Tensor, counts: torch.Tensor | None = None) -> TrainState:
+        """The call's steps, their losses and norms written to ``out`` [2,
+        steps_per_call]; ``counts`` the optimizer's counts on the device
+        (a captured call), else ``st.step`` on the host."""
         for i in range(steps_per_call):
             with stage("gnn.train.sample"):
                 idx = torch.randint(0, n_pool, (batch_size,), generator=gen, device=dev)
@@ -459,12 +524,95 @@ def make_multi_step(
                 else:
                     batch = PairBatch(*(_rows_to_mesh(a.index_select(0, idx[lo:hi]), batch_size, st.mesh)
                                         for a in pool_t))
-            st, (loss, gnorm) = step(st, g, batch)
-            losses[i] = loss
-            norms[i] = gnorm
+            st, (loss, gnorm) = step(st, g, batch, count=None if counts is None else counts[i])
+            out[0, i] = loss
+            out[1, i] = gnorm
+        return st
+
+    if _graphs(state):
+        call = _GraphedCall(state, steps, gen, steps_per_call)
+    else:
+        def call(st: TrainState) -> tuple[TrainState, torch.Tensor]:
+            out = torch.empty(2, steps_per_call, dtype=torch.float32, device=dev)
+            return steps(st, out), out
+
+    def multi_step(st: TrainState):
+        st, out = call(st)
+        losses, norms = out.unbind(0)
         return (st, (losses, norms)) if with_metrics else (st, losses)
 
     return multi_step
+
+
+def _graphs(state: TrainState) -> bool:
+    """Whether ``make_multi_step`` captures its call: the parameters are
+    plain tensors on one CUDA device (no mesh, no DTensor). A ``remat`` step
+    captures too: ``torch.utils.checkpoint``'s recompute runs inside the
+    captured backward."""
+    p = next(state.model.parameters())
+    return p.is_cuda and state.mesh is None and not isinstance(p, DTensor)
+
+
+class _GraphedCall:
+    """One device's multi-step call as a CUDA graph: ``call(st) -> (st,
+    out)``, ``out`` a fresh [2, steps_per_call] f32 tensor of the call's
+    losses and norms.
+
+    The first call runs ``steps`` eagerly: the warm-up that lets every lazy
+    set-up (cuBLAS handles, K4's occupancy query, the allocator's blocks)
+    happen outside a capture. The second captures ``steps`` once, with the
+    optimizer's counts read from a device scalar (``base`` + i) and the
+    batch generator registered with the graph, so that each replay reads
+    the count ``base`` holds and advances the generator's offset by what
+    the call's draws take, as the eager calls do; then it replays. Every
+    later call writes ``st.step`` to ``base`` and replays. The step leaves
+    nothing to set up per call: the graph's private memory pool gives every
+    buffer of the step (the gradients included) a fixed address, and
+    nothing reads a device value on the host. ``st.step`` advances by
+    ``steps_per_call`` a call, as on the eager path. The replay, with the
+    count's write before it and the copy of its output after it, runs
+    under the stage ``gnn.train.replay``: the step's own stages open only
+    while it is captured.
+    """
+
+    def __init__(self, state: TrainState, steps: Callable, gen: torch.Generator, steps_per_call: int):
+        self.state, self.steps, self.gen, self.n = state, steps, gen, steps_per_call
+        self.dev = _device_of(state)
+        self.calls = 0
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.base = torch.zeros((), dtype=torch.int64, device=self.dev)
+        self.out = torch.zeros(2, steps_per_call, dtype=torch.float32, device=self.dev)
+
+    def __call__(self, st: TrainState) -> tuple[TrainState, torch.Tensor]:
+        if st is not self.state:
+            raise ValueError("a captured multi-step replays the state it was made with, not another")
+        self.calls += 1
+        if self.calls == 1:
+            out = torch.empty_like(self.out)
+            return self.steps(st, out), out
+        start = st.step
+        if self.graph is None:
+            self._capture(st)
+        else:
+            st.step += self.n
+        with stage("gnn.train.replay"):
+            self.base.fill_(start)
+            self.graph.replay()
+            out = self.out.clone()
+        return st, out
+
+    def _capture(self, st: TrainState) -> None:
+        """Record the call's steps into ``self.graph`` (nothing runs on the
+        card; ``st.step`` advances on the host as the steps are recorded)."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.gen)
+        # on the state's card and a stream of its own; "thread_local": what
+        # other threads of the process give the card meanwhile is not refused
+        with torch.cuda.device(self.dev), torch.cuda.graph(graph, stream=torch.cuda.Stream(self.dev),
+                                                           capture_error_mode="thread_local"):
+            counts = self.base + torch.arange(self.n, device=self.dev)
+            self.steps(st, self.out, counts)
+        self.graph = graph
 
 
 def _train_device(device, mesh) -> torch.device | str | None:

@@ -49,7 +49,7 @@ def make_model(cfg: MLPTrainConfig, in_features: int = PAIR_FEATURE_DIM) -> Band
 def make_optimizer(cfg: MLPTrainConfig, params) -> ClippedAdamW:
     """``optax.adam(cfg.learning_rate)`` over ``params``."""
     lr = cfg.learning_rate
-    return ClippedAdamW(params, lambda _count: lr, weight_decay=0.0, max_norm=None)
+    return ClippedAdamW(params, lambda _count: lr, weight_decay=0.0, max_norm=None, settles_at=0)
 
 
 def train_step(
