@@ -370,13 +370,23 @@ Phases, each of which must hold or the run exits non-zero at once:
              path (forward under no_grad, backward by autograd over a kept
              graph) and their bound; their launches on one 10-step train call
              at the training phase's widths and on one refresh at the serving
-             widths, once a layer each. ``--only sage`` runs the device phase
-             and this one alone.
+             widths, once a layer each. Then K5 and K6, the fused node update
+             (bias add, message add, GELU and LayerNorm), at [16384, H] for H
+             256 and 512: the output and every gradient (g_x, b0's, the
+             scale's and the bias's) held against the plain ops within the
+             card tests' limits (tests/test_torch_sage_update_cuda.py), the
+             bit-equal shares printed, two launches bit for bit, then timed
+             beside the plain ops (K5 saving what K6 reads, as a train step
+             runs it, and under no_grad, as a refresh does; K6 launched
+             alone) and their bound (K6's the least of recomputing t and the
+             GELU's value, reading t back, or reading both back); their
+             launches counted on the same train call and refresh. ``--only sage`` runs the device phase and this one
+             alone.
 
 This script imports and launches nothing of the JAX package.
 Launch counts are set to 0 just before each main path and read just after;
 the phases that assert a path launches no kernel mean K1 and K2: on the card
-every SAGE layer runs K3 and K4, whose counts the serving, training and sage
+every SAGE layer runs K3 to K6, whose counts the serving, training and sage
 phases report.
 Prints a ``{"kernels": [...]}`` line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -416,7 +426,8 @@ import torch.nn.functional as F
 
 from dragonfly2_tpu_torch.models import GNNScorer, TopoScorer, init_flax_like, params_from_flax
 from dragonfly2_tpu_torch.native import MicroBatchScorer, ScorerHandlePool
-from dragonfly2_tpu_torch.ops import _build, neighbor_agg_cuda, neighbor_aggregate, sage_message
+from dragonfly2_tpu_torch.ops import _build, neighbor_agg_cuda, neighbor_aggregate, sage_message, sage_update
+from dragonfly2_tpu_torch.ops.gelu import gelu
 from dragonfly2_tpu_torch.ops.neighbor_agg_cuda import (
     neighbor_aggregate_bwd_cuda,
     neighbor_aggregate_bwd_torch,
@@ -481,8 +492,8 @@ WIRING_DEADLINE_S, WIRING_ROUND_SEED = 120.0, 21
 # the sharded phase: the training phase's shape on a (1, 1) mesh, held to the
 # card-vs-CPU bounds and to tight ones: on a world of one the collectives are
 # identities, so the mesh run (DTensors: SAGELayer's plain ops) differs from
-# one device (K3 and K4) by the order of the backward's atomic adds and of
-# the fused op's f32 sums, and where msg_edge's cuBLAS product rounds its
+# one device (K3 to K6) by the order of the backward's atomic adds and of
+# the fused ops' f32 sums, and where msg_edge's cuBLAS product rounds its
 # edge term otherwise (tests/test_torch_parallel.py holds mesh against one
 # process, both plain, to the same 1e-4 / 1e-3); mp_train's own cluster (128
 # hosts, 12 steps)
@@ -582,6 +593,23 @@ HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
 # And the widths they are timed at.
 SAGE_PREACT_INSTR, SAGE_TANH_INSTR, SAGE_FWD_REST_INSTR, SAGE_VJP_INSTR = 13, 33, 13, 57
 SAGE_WIDTHS = (256, 512)
+# K5 and K6, the fused node update: the instructions an element of [N, H]
+# needs, tallied from csrc/sage_update.cu as above. K5, 60: three widenings,
+# the two rounded adds (6), t (33), the GELU's value (9), the row sums' three
+# f32 ops, the output's four f32 ops and narrowing (5), x's narrowing for K6.
+# K6, 121: two widenings, t (33) and the value (9) recomputed, the first
+# pass's f32 ops (c, G·c, r·g, G·m and its sum, the second row sum, two
+# column sums: 10), the value again (9), g_c and the mean terms (3), g_a's
+# three adds and rounding (5), the VJP's 16 rounded ops (48), b0's column
+# sum and g_x's narrowing (2). The per-row scalars are a few dozen a row.
+# K6 with t read back instead: t's 33 give way to its widening (89); with a
+# read back too, both GELU values' 18 to its widening besides (72).
+UPDATE_FWD_INSTR, UPDATE_BWD_INSTR, UPDATE_BWD_T_INSTR, UPDATE_BWD_AT_INSTR = 60, 121, 89, 72
+# the card tests' limits on K5's output, K6's g_x and g_b0 against the plain
+# ops: (bf16 roundings, share of the row's largest element); on the scale's
+# and the bias's f32 gradients: a share of the sum of their terms'
+# magnitudes; reasons there
+UPDATE_OUT_LIMIT, UPDATE_GX_LIMIT, UPDATE_B0_LIMIT, UPDATE_PARAM_LIMIT = (1, 2.0**-16), (2, 2.0**-7), (2, 2.0**-8), 1e-5
 # A device-side spin of about 50 ms at the H100's ~2 GHz clock: long enough
 # for the host to queue every launch of a timed run behind it.
 SPIN_CYCLES = 100_000_000
@@ -1041,8 +1069,8 @@ def ingest() -> dict:
 
 def sharded_training(cluster, mesh) -> dict:
     """train_async on the (1, 1) mesh against train_async on the card, from
-    the same start and seed: the plain message path against the fused one
-    (K3 and K4), whose launches are counted on both sides."""
+    the same start and seed: the plain message path and node update against
+    the fused ones (K3 to K6), whose launches are counted on both sides."""
     def launched_since(before: dict) -> dict:
         return {k: v - before[k] for k, v in sage_counts().items()}
 
@@ -1055,10 +1083,9 @@ def sharded_training(cluster, mesh) -> dict:
     state, losses, sharded = train_run(cluster, TRAIN, SHARDED_CALLS, mesh=mesh)
     sharded["sage_launches"] = launched_since(before)
     steps = SHARDED_CALLS * STEPS_PER_CALL * TRAIN.num_layers
-    print(f"  K3/K4 launches: one device {plain['sage_launches']}, mesh {sharded['sage_launches']}")
-    if (plain["sage_launches"] != {"sage_message_fwd": steps, "sage_message_bwd": steps}
-            or any(sharded["sage_launches"].values())):
-        raise AssertionError(f"want {steps} K3 and K4 launches on one device and none on the mesh: "
+    print(f"  K3-K6 launches: one device {plain['sage_launches']}, mesh {sharded['sage_launches']}")
+    if plain["sage_launches"] != {k: steps for k in sage_counts()} or any(sharded["sage_launches"].values()):
+        raise AssertionError(f"want {steps} launches of each of K3 to K6 on one device and none on the mesh: "
                              f"{plain['sage_launches']}, {sharded['sage_launches']}")
     got = {k: v.cpu() for k, v in full_state_dict(state.model).items()}
     placed = {type(p).__name__ for p in (*state.optimizer.params, *state.optimizer.mu, *state.optimizer.nu)}
@@ -4059,14 +4086,15 @@ def live_slots(nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (mask != 0) & (nbr >= 0) & (nbr < nbr.shape[0])
 
 
-def kernel_usage(info: dict, kernel: str, vector: bool = True) -> dict:
+def kernel_usage(info: dict, kernel: str, vector: bool = True, template: str = "") -> dict:
     """Registers and spill bytes of the kernel's bf16 vector instantiation
     (``vector``; K3 and K4 have only the one), the one the main paths
     launch, from the build's -Xptxas -v output, and whether that output is
     this run's nvcc's or the log of an earlier build of the same source and
-    flags."""
+    flags. ``template``: the mangled arguments of one instantiation (K5 and
+    K6 have one a count of vectors a lane, ``ILi2E`` for two)."""
     found = [u for name, u in _build.ptxas_usage(info["log"]).items()
-             if f"{len(kernel)}{kernel}" in name
+             if f"{len(kernel)}{kernel}{template}" in name
              and (not vector or ("13__nv_bfloat16Li8E" in name and "Lb1E" not in name))]  # not K2's unit twin
     if len(found) != 1:
         raise AssertionError(f"ptxas reported {len(found)} bf16 vector instantiations of {kernel}")
@@ -4340,7 +4368,7 @@ def sage_row(cluster, hdim: int, usage: dict) -> dict:
 
 
 def sage_paths(cluster) -> dict:
-    """K3 and K4's launches on the train path (one make_multi_step call at
+    """K3 to K6's launches on the train path (one make_multi_step call at
     the full-cluster widths, after a warm-up call: the call that captures
     the CUDA graph, whose launches the graph's replays repeat) and on the
     refresh path (one GNNScorer.refresh at the serving widths, after a
@@ -4361,18 +4389,129 @@ def sage_paths(cluster) -> dict:
     zero_counts()
     scorer.refresh(cluster.graph)
     refresh = sage_counts()
-    want_train = {"sage_message_fwd": TRAIN.num_layers * STEPS_PER_CALL,
-                  "sage_message_bwd": TRAIN.num_layers * STEPS_PER_CALL}
-    want_refresh = {"sage_message_fwd": MODEL["num_layers"], "sage_message_bwd": 0}
+    want_train = {k: TRAIN.num_layers * STEPS_PER_CALL for k in train}
+    want_refresh = {k: 0 if k.endswith("_bwd") else MODEL["num_layers"] for k in refresh}
     print(f"  launches: a {STEPS_PER_CALL}-step train call {train} (want {want_train}); a refresh {refresh} "
           f"(want {want_refresh})")
     if train != want_train or refresh != want_refresh:
-        raise AssertionError("K3/K4 launched other than once a layer on the train or refresh path")
+        raise AssertionError("K3-K6 launched other than once a layer on the train or refresh path")
     return {"train_call": train, "refresh": refresh}
 
 
+def update_within(name: str, got: torch.Tensor, want: torch.Tensor, limit: tuple[int, float]) -> float:
+    """Every element of got within ``limit[0]`` bf16 roundings of want at the
+    larger of the two, or within ``limit[1]`` of its row's largest |want|;
+    returns the bit-equal share."""
+    gf, wf = got.float(), want.float()
+    d = (gf - wf).abs()
+    _, ex = torch.frexp(torch.maximum(gf.abs(), wf.abs()))
+    over = int(((d > limit[0] * torch.ldexp(torch.ones_like(d), ex - 8))
+                & (d > limit[1] * wf.abs().amax(dim=-1, keepdim=True))).sum())
+    if over or got.dtype != want.dtype:
+        raise AssertionError(f"K5/K6 {name}: {over} elements beyond {limit} of the plain ops")
+    return float((got == want).float().mean())
+
+
+def update_row(hdim: int, usage: dict) -> list[dict]:
+    """K5 and K6 at [NUM_HOSTS, hdim]: held against the plain ops, two
+    launches bit for bit, then timed beside the plain ops (K5 saving what K6
+    reads and under no_grad; K6 launched alone on K5's saved tensors; the
+    plain backward by autograd over a kept graph) and their bound."""
+    n, rng = NUM_HOSTS, np.random.default_rng(41 + hdim)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).cuda().bfloat16()  # noqa: E731
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()  # noqa: E731
+    args = [bf(rng.normal(size=(n, hdim))), bf(rng.normal(size=hdim) * 0.2), bf(rng.normal(size=(n, hdim)) * 0.5),
+            f32(1 + 0.1 * rng.normal(size=hdim)), f32(0.1 * rng.normal(size=hdim))]
+    gin = bf(rng.normal(size=(n, hdim)))
+    grads = {}
+    for name, fn in (("fused", sage_update.sage_update), ("plain", sage_update.sage_update_torch)):
+        leaves = [t.clone().requires_grad_() for t in args]
+        out = fn(*leaves)
+        grads[name] = (out, *torch.autograd.grad(out, leaves, gin, retain_graph=True), leaves)
+    torch.cuda.synchronize()
+    (out, g_y, g_b0, g_agg, g_gamma, g_beta), want = grads["fused"][:-1], grads["plain"]
+    equal = {"out": update_within("out", out, want[0], UPDATE_OUT_LIMIT),
+             "g_x": update_within("g_x", g_y, want[1], UPDATE_GX_LIMIT),
+             "g_b0": update_within("g_b0", g_b0, want[2], UPDATE_B0_LIMIT)}
+    # the scale's and the bias's gradients, f32 sums over the rows in another
+    # order: within UPDATE_PARAM_LIMIT of the sum of their terms' magnitudes
+    a = gelu(args[0] + args[1] + args[2]).float()
+    mu = a.mean(-1, keepdim=True)
+    r = torch.rsqrt(torch.clamp((a * a).mean(-1, keepdim=True) - mu * mu, min=0.0) + 1e-6)
+    gf = gin.float()
+    param_err = {}
+    for gname, got, want_g, mag in (("g_gamma", g_gamma, want[4], (gf * (a - mu) * r).abs().sum(0)),
+                                    ("g_beta", g_beta, want[5], gf.abs().sum(0))):
+        param_err[gname] = float(((got - want_g).abs() / mag.clamp_min(1e-30)).max())
+        if got.dtype != torch.float32 or param_err[gname] > UPDATE_PARAM_LIMIT:
+            raise AssertionError(f"K6 {gname}: {param_err[gname]:.3g} of its terms' magnitudes from the plain "
+                                 f"ops, beyond {UPDATE_PARAM_LIMIT}")
+    del a, mu, r, gf
+    deterministic = bool(torch.equal(g_y, g_agg)) and twice_equal(lambda: sage_update.sage_update(*args))
+    again = torch.autograd.grad(grads["fused"][0], grads["fused"][-1], gin, retain_graph=True)
+    deterministic = deterministic and all(torch.equal(a, b) for a, b in zip(grads["fused"][1:-1], again))
+    fused_out, plain_out, leaves = grads["fused"][0], grads["plain"][0], grads["plain"][-1]
+    _, xs, mu, rstd = sage_update._launch_fwd(*args, 1e-6, save=True)
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn(*args)
+        return run
+
+    cold, warm = time_all({
+        "fwd": lambda: sage_update._launch_fwd(*args, 1e-6, save=True),
+        "fwd no_grad": no_grad(sage_update.sage_update),
+        "fwd plain": no_grad(sage_update.sage_update_torch),
+        "bwd": lambda: sage_update._launch_bwd(gin, xs, mu, rstd, args[3]),
+        "bwd plain": lambda: torch.autograd.grad(plain_out, leaves, gin, retain_graph=True),
+    })
+    del grads, fused_out, plain_out, leaves, again
+    # the least work: each input read once, each output written once (the
+    # forward's x and the rows' mean and rstd, saved for the backward, among
+    # them), and the elements' instructions at one a lane a clock (half the
+    # f32 FMA rate); the per-channel parameters' bytes are a few KiB. K6's
+    # gradient needs t and the GELU's value besides, at the least of three
+    # costs, as K4's: recomputed from x, t read back, or a and t read back in
+    # bf16 (the forward's writes of them are its own cost)
+    elems = n * hdim
+    bwd_bytes = 3 * elems * 2 + 8 * n
+    floors = {"fwd": {"": (4 * elems * 2 + 8 * n, UPDATE_FWD_INSTR)},
+              "bwd": {"a and t recomputed": (bwd_bytes, UPDATE_BWD_INSTR),
+                      "t read back": (bwd_bytes + 2 * elems, UPDATE_BWD_T_INSTR),
+                      "a and t read back": (bwd_bytes + 4 * elems, UPDATE_BWD_AT_INSTR)}}
+    rows = []
+    for name in ("fwd", "bwd"):
+        (bound_ms, bound_by), way = min((bound(nbytes, 2 * elems * instr), way)
+                                        for way, (nbytes, instr) in floors[name].items())
+        nbytes, instr = floors[name][way]
+        bound_by = ("instructions" if bound_by == "operations" else bound_by) + (f", {way}" if way else "")
+        no_grad_ms = f", under no_grad {cold['fwd no_grad']:.4f} / {warm['fwd no_grad']:.4f}" if name == "fwd" else ""
+        print(f"  K5/K6 {name} bf16 [{n}, {hdim}] (L2 flushed / back to back): kernel {cold[name]:.4f} / "
+              f"{warm[name]:.4f} ms{no_grad_ms}, plain {cold[name + ' plain']:.4f} / {warm[name + ' plain']:.4f} ms; "
+              f"bound {bound_ms * 1e3:.1f} us ({bound_by}: {nbytes} bytes, {elems} x {instr} instructions), "
+              f"{bound_ms / cold[name]:.1%} of it flushed, {bound_ms / warm[name]:.1%} back to back; "
+              f"{usage[name]['registers']} registers, {usage[name]['spills']} bytes of spills")
+        rows.append({
+            "name": f"sage_update_{name}", "route": "cuda", "source": "dragonfly2_tpu_torch/csrc/sage_update.cu",
+            "replaces": None, "ms": cold[name], "plain_ms": cold[name + " plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "ms_l2_warm": warm[name], "plain_ms_l2_warm": warm[name + " plain"],
+            "ms_no_grad": cold["fwd no_grad"] if name == "fwd" else None,
+            "ms_no_grad_l2_warm": warm["fwd no_grad"] if name == "fwd" else None,
+            "deterministic": deterministic, "bit_equal_share": equal, **usage[name],
+            "param_grad_err": param_err if name == "bwd" else None,
+            "dtype": "bfloat16", "shape": [n, hdim], "ok": True,
+        })
+    print(f"  K5/K6 at hidden {hdim}: bit-equal shares against the plain ops {equal}; the scale's and bias's "
+          f"gradients off the plain ops' by {param_err} of their terms' magnitudes; two launches "
+          f"bit-identical: {deterministic}")
+    if not deterministic:
+        raise AssertionError("K5 or K6 gave other bits on a second launch, or two gradients for y and agg")
+    return rows
+
+
 def sage_phase(card: str, cluster=None) -> list[dict]:
-    """K3 and K4: checked and timed at both widths, and their launch counts
+    """K3 to K6: checked and timed at both widths, and their launch counts
     on the train and refresh paths."""
     with phase("sage"):
         if cluster is None:
@@ -4381,6 +4520,12 @@ def sage_phase(card: str, cluster=None) -> list[dict]:
         usage = {"fwd": kernel_usage(info, "sage_message_fwd_kernel", vector=False),
                  "bwd": kernel_usage(info, "sage_message_bwd_kernel", vector=False)}
         rows = [r for hdim in SAGE_WIDTHS for r in sage_row(cluster, hdim, usage)]
+        info = _build.build("sage_update")
+        for hdim in SAGE_WIDTHS:
+            vecs = f"ILi{-(-hdim // 256)}E"  # the instantiation that H takes: one 16-byte vector a lane a 256
+            usage = {"fwd": kernel_usage(info, "sage_update_fwd_kernel", vector=False, template=vecs),
+                     "bwd": kernel_usage(info, "sage_update_bwd_kernel", vector=False, template=vecs)}
+            rows += update_row(hdim, usage)
         launches = sage_paths(cluster)
         for r in rows:
             r["launches"] = launches
@@ -4435,12 +4580,14 @@ def counts() -> dict:
 
 
 def sage_counts() -> dict:
-    return {"sage_message_fwd": sage_message.LAUNCHES, "sage_message_bwd": sage_message.BWD_LAUNCHES}
+    return {"sage_message_fwd": sage_message.LAUNCHES, "sage_message_bwd": sage_message.BWD_LAUNCHES,
+            "sage_update_fwd": sage_update.LAUNCHES, "sage_update_bwd": sage_update.BWD_LAUNCHES}
 
 
 def zero_counts() -> None:
     neighbor_agg_cuda.LAUNCHES = neighbor_agg_cuda.BWD_LAUNCHES = 0
     sage_message.LAUNCHES = sage_message.BWD_LAUNCHES = 0
+    sage_update.LAUNCHES = sage_update.BWD_LAUNCHES = 0
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -27,7 +27,7 @@ from torch.distributed.tensor import DTensor, Replicate
 
 from dragonfly2_tpu_torch.models.features import EDGE_FEATURE_DIM, FEATURE_DIM, NODE_FEATURE_DIM
 from dragonfly2_tpu_torch.observability.tracing import stage
-from dragonfly2_tpu_torch.ops import sage_message
+from dragonfly2_tpu_torch.ops import sage_message, sage_update
 from dragonfly2_tpu_torch.ops.gelu import gelu
 
 
@@ -100,16 +100,25 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.add_bias(self.product(x))
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The layer's output without its bias, in ``compute_dtype``."""
         dt = self.compute_dtype
         if not _spread(x):
-            y = F.linear(x.to(dt), self.weight.to(dt))
-            return y if self.bias is None else y + self.bias.to(dt)
+            return F.linear(x.to(dt), self.weight.to(dt))
         y = F.linear(x.to(dt).float(), _SumPartials.apply(self.weight.to(dt).float()))
         if any(p.is_partial() for p in y.placements):
             y = y.redistribute(placements=[Replicate() if p.is_partial() else p for p in y.placements])
-        y = y.to(dt)
+        return y.to(dt)
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        """``product``'s result plus the bias, rounded as the layer rounds it."""
+        dt = self.compute_dtype
         if self.bias is None:
             return y
+        if not _spread(y):
+            return y + self.bias.to(dt)
         return (y.float() + _SumPartials.apply(self.bias.to(dt).float())).to(dt)
 
 
@@ -122,11 +131,7 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        mu = x.mean(dim=-1, keepdim=True)
-        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mu) * mul + self.bias).to(self.compute_dtype)
+        return sage_update.layer_norm(x, self.weight, self.bias, self.eps, self.compute_dtype)
 
 
 class SAGELayer(nn.Module):
@@ -158,8 +163,13 @@ class SAGELayer(nn.Module):
         else:
             v = self.msg_edge(g.edge_feats.to(self.dtype))
             agg = sage_message.message_path(u, s, v, g.neighbors, g.mask)  # [N, F]
-        out = gelu(self.Dense_0(h) + agg)
-        return self.LayerNorm_0(out)
+        dense, norm = self.Dense_0, self.LayerNorm_0
+        y, b0 = dense.product(h), dense.bias.to(self.dtype)
+        if sage_update.takes(y, b0, agg, norm.weight, norm.bias):
+            # the card: the bias add, the message add, GELU and LayerNorm as one op, K5 forward and K6 backward
+            with stage("gnn.sage.update"):
+                return sage_update.fused(y, b0, agg, norm.weight, norm.bias, norm.eps)
+        return norm(gelu(dense.add_bias(y) + agg))
 
 
 class GraphSAGE(nn.Module):

@@ -64,7 +64,7 @@ def test_the_library_builds_from_the_repo_and_is_reused():
     assert first["path"] == again["path"] == _build.gxx_library_path("scorer")
     assert again["seconds"] == 0.0 and "-O3" in again["flags"] and "-ffast-math" in again["flags"]
     assert first["path"].parent == _build.BUILD_DIR and first["path"].name.startswith("libscorer-")
-    assert _build.sources() == ["neighbor_agg"]  # the nvcc list holds .cu sources only
+    assert _build.sources() == ["neighbor_agg", "sage_update"]  # the nvcc list holds .cu sources only
     src = (_build.CSRC_DIR / "scorer.cc").read_text()
     ref = (ref_native._SRC).read_text()
     assert [ln for ln in src.splitlines() if ln not in ref.splitlines()] == [
