@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from refdrain import reference_drain_as_the_ports  # noqa: F401 - a fixture, used by name
 from test_e2e import Origin
 
 from dragonfly2_tpu.daemon import conductor as ref_conductor
@@ -67,13 +68,7 @@ def bounded(coro):
     return asyncio.run(asyncio.wait_for(coro, BOUND_S))
 
 
-@pytest.fixture(autouse=True)
-def _reference_drain_as_the_ports(monkeypatch):
-    """The reference conductor's ``_drain_writes`` can spin forever on
-    Python 3.12 and hold the loop, so no bound fires (ROADMAP.md §3); its
-    engines here drain deferred writes with the port's."""
-    monkeypatch.setattr(ref_conductor.PeerTaskConductor, "_drain_writes",
-                        port_conductor.PeerTaskConductor._drain_writes)
+pytestmark = pytest.mark.usefixtures("reference_drain_as_the_ports")
 
 
 @dataclass(frozen=True)

@@ -64,18 +64,12 @@ from dragonfly2_tpu_torch.utils.pieces import parse_http_range
 # beside JAX's thread pools (see tests/test_torch_evaluator.py).
 torch.set_num_threads(1)
 
-REPO = Path(__file__).resolve().parent.parent
+TESTS = Path(__file__).resolve().parent
+REPO = TESTS.parent
 DEADLINE_S = 60.0
 PORT_DAEMON = [sys.executable, "-m", "dragonfly2_tpu_torch.daemon.server"]
-# the reference's daemon, its conductor draining deferred writes with the
-# port's: the reference's `_drain_writes` can spin forever on Python 3.12
-# and hold the daemon's loop (ROADMAP.md §3)
-REF_DAEMON = [sys.executable, "-c", (
-    "from dragonfly2_tpu.daemon import conductor as ref\n"
-    "from dragonfly2_tpu_torch.daemon import conductor as port\n"
-    "ref.PeerTaskConductor._drain_writes = port.PeerTaskConductor._drain_writes\n"
-    "from dragonfly2_tpu.daemon.server import main\n"
-    "main()\n")]
+# the reference's daemon, its conductor draining deferred writes with the port's
+REF_DAEMON = [sys.executable, str(TESTS / "refdrain.py")]
 
 
 @pytest.fixture(autouse=True)

@@ -33,6 +33,7 @@ import torch
 
 from fakeossobs import FakeOssObs
 from fakes3 import FakeS3
+from refdrain import reference_drain_as_the_ports  # noqa: F401 - a fixture, used by name
 
 from dragonfly2_tpu.cli import dfstore as ref_dfstore
 from dragonfly2_tpu.daemon import objectgw as ref_objectgw
@@ -462,13 +463,8 @@ async def _gateway(pkg: str, tmp_path):
 
 
 @pytest.mark.parametrize("cli_pkg,gw_pkg", [("port", "ref"), ("ref", "port"), ("port", "port"), ("ref", "ref")])
-def test_either_packages_dfstore_drives_either_packages_gateway(tmp_path, monkeypatch, cli_pkg, gw_pkg):
-    from dragonfly2_tpu.daemon import conductor as ref_conductor
-    from dragonfly2_tpu_torch.daemon import conductor as port_conductor
-
-    # the reference conductor's drain can spin on Python 3.12 (ROADMAP.md §3)
-    monkeypatch.setattr(ref_conductor.PeerTaskConductor, "_drain_writes",
-                        port_conductor.PeerTaskConductor._drain_writes)
+def test_either_packages_dfstore_drives_either_packages_gateway(tmp_path, reference_drain_as_the_ports,
+                                                               cli_pkg, gw_pkg):
     mod = port_dfstore if cli_pkg == "port" else ref_dfstore
 
     async def body():

@@ -40,6 +40,7 @@ import torch
 from aiohttp import web
 
 from fakeregistry import FakeRegistry
+from refdrain import reference_drain_as_the_ports  # noqa: F401 - a fixture, used by name
 from test_e2e import Origin
 
 from dragonfly2_tpu.daemon import proxy as ref_proxy
@@ -215,13 +216,7 @@ async def _wire_answers(pkg: str, tmp_path) -> dict:
     return out
 
 
-def test_the_proxys_http_behaviour_equals_the_references(tmp_path, monkeypatch):
-    from dragonfly2_tpu.daemon import conductor as ref_conductor
-    from dragonfly2_tpu_torch.daemon import conductor as port_conductor
-
-    # the reference conductor's drain can spin on Python 3.12 (ROADMAP.md §3)
-    monkeypatch.setattr(ref_conductor.PeerTaskConductor, "_drain_writes",
-                        port_conductor.PeerTaskConductor._drain_writes)
+def test_the_proxys_http_behaviour_equals_the_references(tmp_path, reference_drain_as_the_ports):
     got = {pkg: bounded(_wire_answers(pkg, tmp_path)) for pkg in ("ref", "port")}
     for case in got["ref"]:
         assert got["port"][case] == got["ref"][case], case
