@@ -582,16 +582,22 @@ EMBED_MIN_COSINE, SCORE_MAX_ABS = 0.999, 5e-3
 HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
 # K3 and K4, the fused SAGE message path: the instructions a live element of
 # [N, K, H] needs, for their bound beside the bytes, tallied from the ops of
-# csrc/neighbor_agg.cu at 4 edge features, an f32 op rounded to bf16 counting
-# 3 (the op, the narrowing, the widening) and the precise tanhf with its
-# rounding 18 (libdevice's, an estimate: no tool here counts the card's
-# instructions). The pre-activation x, 13: u's widening, the edge term's 4
-# FMAs and rounding, two rounded adds. t = tanh(c(x + kx^3)), 33: five rounded
-# ops and tanhf. The forward's rest, 13: GELU's three rounded ops, the mask's
-# rounded product, the f32 sum. The VJP's own ops, given x and t, 57: 16
-# rounded ops, the mask's product, g_s's sum, g_We's 4 FMAs, dx's narrowing.
+# csrc/neighbor_agg.cu at 4 edge features. Each bf16-rounded op is a packed
+# bf16x2 add, sub or mul, two channels an instruction: 0.5 an element, as is a
+# pair's narrowing from f32; a widening to f32 counts 1, an f32 op 1, and the
+# precise tanhf 16 (libdevice's, an estimate: no tool here counts the card's
+# instructions). The pre-activation x, 5.5: the edge term's 4 FMAs and its
+# pair narrowing, two packed adds (u and s stay packed). t = tanh(c(x + kx^3)),
+# 20: five packed ops, the argument's widening, tanhf, the pair narrowing. The
+# forward's rest, 4: GELU's three packed ops, the mask's packed product, the
+# widening into the f32 sum and the sum. The VJP's own ops, given x and t,
+# 14.5: 16 packed ops, the mask's product, dx's widening, g_s's sum, g_We's 4
+# FMAs (dx is written as it is computed, packed). K3 29.5, K4 40. The same
+# ops each as an f32 op rounded to bf16 (3 an op: the op, the narrowing, the
+# widening; tanhf with its rounding 18), the other way to write them, tally
+# x 13, t 33, the forward's rest 13 and the VJP 57: K3 59, K4 103.
+SAGE_PREACT_INSTR, SAGE_TANH_INSTR, SAGE_FWD_REST_INSTR, SAGE_VJP_INSTR = 5.5, 20, 4, 14.5
 # And the widths they are timed at.
-SAGE_PREACT_INSTR, SAGE_TANH_INSTR, SAGE_FWD_REST_INSTR, SAGE_VJP_INSTR = 13, 33, 13, 57
 SAGE_WIDTHS = (256, 512)
 # K5 and K6, the fused node update: the instructions an element of [N, H]
 # needs, tallied from csrc/sage_update.cu as above. K5, 60: three widenings,

@@ -83,10 +83,11 @@
 // What bounds them on an H100: instructions. K3 must read u, s and the graph
 // and write agg, about 57 MB at N=16384, K=16, H=512 (17 us at 3.35 TB/s),
 // and gather a u row from L2 for each live slot; but each element of
-// [N, K, H] costs some 60 instructions (each op with its rounding, the
-// precise tanhf), about 0.18 ms for 10^8 live elements at one instruction a
-// lane a clock. K4 recomputes the forward's elements and adds the VJP's, some
-// 110 instructions an element. The design keeps the elements out of device
+// [N, K, H] costs some 30 instructions (the rounded ops as packed bf16x2 ones,
+// two channels an instruction; the precise tanhf, some 16, in f32), about
+// 0.09 ms for 10^8 live elements at one instruction a lane a clock. K4
+// recomputes the forward's elements and adds the VJP's, some 40 instructions
+// an element. The design keeps the elements out of device
 // memory: one warp owns one row and 256 channels (8 a lane, one 16-byte load),
 // finds the row's live slots by ballot and walks them with two gathered u rows
 // in flight, as K1 does, and computes the edge term from e[n,k,:E] and a
@@ -343,52 +344,56 @@ constexpr float kMeanEps = 1e-6f;             // masked_mean's eps, as the plain
 constexpr int kSageFwdBlocksPerSM = 6;
 constexpr int kSageBwdBlocksPerSM = 4;
 
-// x rounded to bf16 and back: every op of the plain path ends in this rounding.
+// A lane's 8 channels as 4 bf16 pairs: one 16-byte load or store.
+using bf2 = __nv_bfloat162;
+constexpr int kSagePairs = kSageVec / 2;
+struct __align__(16) Lane8 {
+  bf2 p[kSagePairs];
+};
+
+__device__ __forceinline__ Lane8 as_pairs(const uint4& q) { return *reinterpret_cast<const Lane8*>(&q); }
+__device__ __forceinline__ Lane8 load8(const __nv_bfloat16* __restrict__ at) {
+  return as_pairs(__ldg(reinterpret_cast<const uint4*>(at)));
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* __restrict__ at, const Lane8& v) {
+  *reinterpret_cast<uint4*>(at) = *reinterpret_cast<const uint4*>(&v);
+}
+
+// x rounded to bf16 and back: the f32 ops of the plain path end in this rounding.
 __device__ __forceinline__ float rb(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-// One f32 op, then the rounding. The _rn intrinsics are never contracted into
-// an FMA, so each product and sum rounds where the plain path's op does.
-__device__ __forceinline__ float mul_r(float a, float b) { return rb(__fmul_rn(a, b)); }
-__device__ __forceinline__ float add_r(float a, float b) { return rb(__fadd_rn(a, b)); }
+
+// Every bf16 op of the plain path is an f32 op on two bf16 values, rounded to
+// bf16. Hopper's packed bf16x2 add, sub and mul give that result for two
+// channels in one instruction, correctly rounded: f32 holds 24 bits, at least
+// 2*8 + 2, so rounding the f32 result to bf16 gives the exact result rounded
+// to bf16 (in the subnormal range too, where a sum of two bf16 values is exact
+// and a product has at most 16 significant bits), overflow to inf included.
+// The _rn forms are never contracted into an FMA. Every constant below is
+// exact in bf16, so a pair of it is exact too.
+__device__ __forceinline__ bf2 both(float v) { return __float2bfloat162_rn(v); }
 
 // tanh(c * (x + k * x^3)), ops/gelu.py's _gelu_tanh: x**3 as torch computes it
 // on the card for bf16 (x * x, rounded, times x, rounded), then each op
-// rounded, tanh with the precise tanhf.
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float x3 = mul_r(mul_r(x, x), x);
-  return rb(tanhf(mul_r(add_r(mul_r(x3, kGeluK), x), kGeluC)));
+// rounded, tanh with the precise tanhf in f32, both channels rounded at once.
+__device__ __forceinline__ bf2 gelu_tanh(bf2 x) {
+  const bf2 x3 = __hmul2_rn(__hmul2_rn(x, x), x);
+  const float2 a = __bfloat1622float2(__hmul2_rn(__hadd2_rn(__hmul2_rn(x3, both(kGeluK)), x), both(kGeluC)));
+  return __floats2bfloat162_rn(tanhf(a.x), tanhf(a.y));
 }
 
 // _Gelu.forward: (t + 1) * 0.5 * x.
-__device__ __forceinline__ float gelu_value(float x) {
-  return mul_r(mul_r(add_r(gelu_tanh(x), 1.f), 0.5f), x);
+__device__ __forceinline__ bf2 gelu_value(bf2 x) {
+  return __hmul2_rn(__hmul2_rn(__hadd2_rn(gelu_tanh(x), both(1.f)), both(0.5f)), x);
 }
 
 // _Gelu.backward at x with incoming gradient g, op for op:
 // p = 0.5·x·g·(1 - t), s = c·(p + p·t), dx = (g·cdf + s) + k·s·3x².
-__device__ __forceinline__ float gelu_grad(float x, float g) {
-  const float t = gelu_tanh(x);
-  const float p = mul_r(mul_r(mul_r(x, g), 0.5f), rb(__fsub_rn(1.f, t)));
-  const float s = mul_r(add_r(mul_r(p, t), p), kGeluC);
-  const float dx = add_r(mul_r(g, mul_r(add_r(t, 1.f), 0.5f)), s);
-  return add_r(dx, mul_r(mul_r(s, kGeluK), mul_r(mul_r(x, x), 3.f)));
-}
-
-__device__ __forceinline__ void unpack8(const uint4& q, float (&f)[kSageVec]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 t = __bfloat1622float2(p[j]);
-    f[2 * j] = t.x;
-    f[2 * j + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[kSageVec]) {
-  uint4 q;
-  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) p[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
-  return q;
+__device__ __forceinline__ bf2 gelu_grad(bf2 x, bf2 g) {
+  const bf2 t = gelu_tanh(x);
+  const bf2 p = __hmul2_rn(__hmul2_rn(__hmul2_rn(x, g), both(0.5f)), __hsub2_rn(both(1.f), t));
+  const bf2 s = __hmul2_rn(__hadd2_rn(__hmul2_rn(p, t), p), both(kGeluC));
+  const bf2 dx = __hadd2_rn(__hmul2_rn(g, __hmul2_rn(__hadd2_rn(t, both(1.f)), both(0.5f))), s);
+  return __hadd2_rn(dx, __hmul2_rn(__hmul2_rn(s, both(kGeluK)), __hmul2_rn(__hmul2_rn(x, x), both(3.f))));
 }
 
 // The block's chunk of We [H, E] in f32, laid out so that lane l reads the
@@ -414,9 +419,9 @@ __device__ __forceinline__ void load_edge_weights(EdgeWeights& sm, const __nv_bf
 // The edge term of this lane's channels for one slot, msg_edge's product:
 // sum_d e[d] * We[c, d] in f32 (each product of two bf16 values is exact),
 // rounded once to bf16.
-__device__ __forceinline__ void edge_term(const EdgeWeights& sm, const float (&e)[kMaxEdge], int edim,
-                                          float (&v)[kSageVec]) {
+__device__ __forceinline__ Lane8 edge_term(const EdgeWeights& sm, const float (&e)[kMaxEdge], int edim) {
   const int lane = threadIdx.x & 31;
+  float v[kSageVec];
 #pragma unroll
   for (int j = 0; j < kSageVec; ++j) v[j] = 0.f;
 #pragma unroll
@@ -433,8 +438,10 @@ __device__ __forceinline__ void edge_term(const EdgeWeights& sm, const float (&e
       v[7] = fmaf(e[d], hi.w, v[7]);
     }
   }
+  Lane8 r;
 #pragma unroll
-  for (int j = 0; j < kSageVec; ++j) v[j] = rb(v[j]);
+  for (int j = 0; j < kSagePairs; ++j) r.p[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+  return r;
 }
 
 // One row's slots, one a lane (K <= 32): the neighbour row (-1 when the slot
@@ -465,20 +472,20 @@ __device__ __forceinline__ RowSlots load_row(const int* __restrict__ nbr, const 
   float count = r.m;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) count += __shfl_xor_sync(kFullMask, count, off);
-  r.denom = add_r(rb(count), kMeanEps);
+  r.denom = rb(__fadd_rn(rb(count), kMeanEps));
   r.live = __ballot_sync(kFullMask, idx >= 0);
   return r;
 }
 
 // The pre-activation of one live slot for this lane's channels:
 // bf16(bf16(u[nbr] + s) + v), v the slot's edge term.
-__device__ __forceinline__ void preact(const EdgeWeights& sm, const uint4& urow, const float (&sv)[kSageVec],
-                                       const float (&e)[kMaxEdge], int edim, float (&x)[kSageVec]) {
-  float uv[kSageVec], v[kSageVec];
-  unpack8(urow, uv);
-  edge_term(sm, e, edim, v);
+__device__ __forceinline__ Lane8 preact(const EdgeWeights& sm, const uint4& urow, const Lane8& sv,
+                                        const float (&e)[kMaxEdge], int edim) {
+  const Lane8 uv = as_pairs(urow), v = edge_term(sm, e, edim);
+  Lane8 x;
 #pragma unroll
-  for (int j = 0; j < kSageVec; ++j) x[j] = add_r(add_r(uv[j], sv[j]), v[j]);
+  for (int j = 0; j < kSagePairs; ++j) x.p[j] = __hadd2_rn(__hadd2_rn(uv.p[j], sv.p[j]), v.p[j]);
+  return x;
 }
 
 // K3: agg[n] = bf16(bf16(sum_k bf16(gelu(x[n,k]) * m[n,k])) / denom[n]), with
@@ -498,10 +505,10 @@ sage_message_fwd_kernel(const __nv_bfloat16* __restrict__ u, const __nv_bfloat16
   const RowSlots r = load_row(nbr, mask, edge, row, n, k, edim);
   const int c0 = blockIdx.y * kSageChunk + lane * kSageVec;
   const bool active = c0 < hdim;  // hdim is a multiple of 8: all of the lane's channels or none
-  float sv[kSageVec], acc[kSageVec];
+  float acc[kSageVec];
 #pragma unroll
-  for (int j = 0; j < kSageVec; ++j) sv[j] = acc[j] = 0.f;
-  if (active) unpack8(__ldg(reinterpret_cast<const uint4*>(s + row * hdim + c0)), sv);
+  for (int j = 0; j < kSageVec; ++j) acc[j] = 0.f;
+  const Lane8 sv = active ? load8(s + row * hdim + c0) : Lane8{};
 
   unsigned live = r.live;
   while (live) {  // warp-uniform: shuffles need every lane
@@ -518,22 +525,29 @@ sage_message_fwd_kernel(const __nv_bfloat16* __restrict__ u, const __nv_bfloat16
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       if (from[b] < 0) break;
-      const float m = __shfl_sync(kFullMask, r.m, from[b]);
+      const bf2 m = both(__shfl_sync(kFullMask, r.m, from[b]));
       float e[kMaxEdge];
 #pragma unroll
       for (int d = 0; d < kMaxEdge; ++d) e[d] = __shfl_sync(kFullMask, r.e[d], from[b]);
       if (active) {
-        float x[kSageVec];
-        preact(wsm, buf[b], sv, e, edim, x);
+        const Lane8 x = preact(wsm, buf[b], sv, e, edim);
 #pragma unroll
-        for (int j = 0; j < kSageVec; ++j) acc[j] = __fadd_rn(acc[j], mul_r(gelu_value(x[j]), m));
+        for (int j = 0; j < kSagePairs; ++j) {
+          const float2 y = __bfloat1622float2(__hmul2_rn(gelu_value(x.p[j]), m));
+          acc[2 * j] = __fadd_rn(acc[2 * j], y.x);
+          acc[2 * j + 1] = __fadd_rn(acc[2 * j + 1], y.y);
+        }
       }
     }
   }
   if (active) {
+    Lane8 y;
 #pragma unroll
-    for (int j = 0; j < kSageVec; ++j) acc[j] = rb(__fdiv_rn(rb(acc[j]), r.denom));
-    *reinterpret_cast<uint4*>(out + row * hdim + c0) = pack8(acc);
+    for (int j = 0; j < kSagePairs; ++j) {
+      const float2 a = __bfloat1622float2(__floats2bfloat162_rn(acc[2 * j], acc[2 * j + 1]));
+      y.p[j] = __floats2bfloat162_rn(__fdiv_rn(a.x, r.denom), __fdiv_rn(a.y, r.denom));
+    }
+    store8(out + row * hdim + c0, y);
   }
 }
 
@@ -566,14 +580,18 @@ sage_message_bwd_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16
   for (long long row = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp; row < n;
        row += static_cast<long long>(gridDim.x) * kWarpsPerBlock) {
     const RowSlots r = load_row(nbr, mask, edge, row, n, k, edim);
-    float gt[kSageVec], sv[kSageVec], gsum[kSageVec];
+    float gsum[kSageVec];
 #pragma unroll
-    for (int j = 0; j < kSageVec; ++j) gt[j] = sv[j] = gsum[j] = 0.f;
+    for (int j = 0; j < kSageVec; ++j) gsum[j] = 0.f;
+    Lane8 gt{}, sv{};
     if (active) {
-      unpack8(__ldg(reinterpret_cast<const uint4*>(g + row * hdim + c0)), gt);
-      unpack8(__ldg(reinterpret_cast<const uint4*>(s + row * hdim + c0)), sv);
+      gt = load8(g + row * hdim + c0);
+      sv = load8(s + row * hdim + c0);
 #pragma unroll
-      for (int j = 0; j < kSageVec; ++j) gt[j] = rb(__fdiv_rn(gt[j], r.denom));  // the mean's divide
+      for (int j = 0; j < kSagePairs; ++j) {  // the mean's divide
+        const float2 a = __bfloat1622float2(gt.p[j]);
+        gt.p[j] = __floats2bfloat162_rn(__fdiv_rn(a.x, r.denom), __fdiv_rn(a.y, r.denom));
+      }
     }
     unsigned live = r.live;
     while (live) {
@@ -590,29 +608,34 @@ sage_message_bwd_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16
 #pragma unroll
       for (int b = 0; b < kBatch; ++b) {
         if (from[b] < 0) break;
-        const float m = __shfl_sync(kFullMask, r.m, from[b]);
+        const bf2 m = both(__shfl_sync(kFullMask, r.m, from[b]));
         float e[kMaxEdge];
 #pragma unroll
         for (int d = 0; d < kMaxEdge; ++d) e[d] = __shfl_sync(kFullMask, r.e[d], from[b]);
         if (active) {
-          float x[kSageVec];
-          preact(wsm, buf[b], sv, e, edim, x);
+          Lane8 x = preact(wsm, buf[b], sv, e, edim);
 #pragma unroll
-          for (int j = 0; j < kSageVec; ++j) {
-            x[j] = gelu_grad(x[j], mul_r(gt[j], m));  // the mask's product, then GELU's VJP
-            gsum[j] = __fadd_rn(gsum[j], x[j]);
+          for (int j = 0; j < kSagePairs; ++j) {
+            x.p[j] = gelu_grad(x.p[j], __hmul2_rn(gt.p[j], m));  // the mask's product, then GELU's VJP
+            const float2 y = __bfloat1622float2(x.p[j]);
+            gsum[2 * j] = __fadd_rn(gsum[2 * j], y.x);
+            gsum[2 * j + 1] = __fadd_rn(gsum[2 * j + 1], y.y);
 #pragma unroll
             for (int d = 0; d < kMaxEdge; ++d)
-              if (d < edim) gw[d][j] = fmaf(x[j], e[d], gw[d][j]);
+              if (d < edim) {
+                gw[d][2 * j] = fmaf(y.x, e[d], gw[d][2 * j]);
+                gw[d][2 * j + 1] = fmaf(y.y, e[d], gw[d][2 * j + 1]);
+              }
           }
-          *reinterpret_cast<uint4*>(dx + (static_cast<size_t>(row) * k + from[b]) * hdim + c0) = pack8(x);
+          store8(dx + (static_cast<size_t>(row) * k + from[b]) * hdim + c0, x);
         }
       }
     }
     if (active) {
+      Lane8 y;
 #pragma unroll
-      for (int j = 0; j < kSageVec; ++j) gsum[j] = rb(gsum[j]);
-      *reinterpret_cast<uint4*>(gs + row * hdim + c0) = pack8(gsum);
+      for (int j = 0; j < kSagePairs; ++j) y.p[j] = __floats2bfloat162_rn(gsum[2 * j], gsum[2 * j + 1]);
+      store8(gs + row * hdim + c0, y);
     }
   }
 
